@@ -1,0 +1,128 @@
+"""`pmpc_tpu_torch.solvers.reduced` against `pmpc_tpu.solvers.reduced`, f64.
+
+The JAX functions take one (M, ...) problem and are mapped over the B
+scenarios with `jax.vmap`; the port takes the (B, M, ...) batch."""
+
+from functools import partial
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from pmpc_tpu.solvers import reduced as jred
+from pmpc_tpu_torch.solvers import reduced as tred
+
+torch.set_num_threads(1)
+
+ARGS = ("x0", "f", "fx", "fu", "X_prev", "U_prev", "Q", "R", "X_ref", "U_ref",
+        "reg_x", "reg_u", "slew_reg", "slew_reg0", "slew_um1")
+
+
+def problem(seed, B=2, M=3, N=6, xdim=4, udim=2):
+    """A random batch of linearized problems, numpy f64, (B, M, ...)."""
+    rng = np.random.default_rng(seed)
+    lead = (B, M)
+    G = rng.normal(size=lead + (N, xdim, xdim))
+    H = rng.normal(size=lead + (N, udim, udim))
+    return dict(
+        x0=rng.normal(size=lead + (xdim,)),
+        f=rng.normal(size=lead + (N, xdim)),
+        fx=np.eye(xdim) + 0.1 * rng.normal(size=lead + (N, xdim, xdim)),
+        fu=rng.normal(size=lead + (N, xdim, udim)),
+        X_prev=rng.normal(size=lead + (N, xdim)),
+        U_prev=0.3 * rng.normal(size=lead + (N, udim)),
+        Q=G @ np.swapaxes(G, -1, -2) / xdim + np.eye(xdim),
+        R=0.1 * (H @ np.swapaxes(H, -1, -2) / udim + np.eye(udim)),
+        X_ref=rng.normal(size=lead + (N, xdim)),
+        U_ref=2.0 * rng.normal(size=lead + (N, udim)),
+        reg_x=rng.uniform(0.5, 1.5, size=lead),
+        reg_u=rng.uniform(0.05, 0.2, size=lead),
+        slew_reg=rng.uniform(0.0, 0.5, size=lead),
+        slew_reg0=rng.uniform(0.0, 0.5, size=lead),
+        slew_um1=rng.normal(size=lead + (udim,)),
+    )
+
+
+def to_torch(p):
+    return {k: torch.from_numpy(np.asarray(v, np.float64)) for k, v in p.items()}
+
+
+def jax_cqp(p, Nc, weights=None, scale_slew_target=True):
+    fn = partial(jred.assemble_condensed, Nc=Nc,
+                 scale_slew_target=scale_slew_target)
+    args = [jnp.asarray(p[k]) for k in ARGS]
+    if weights is None:
+        return jax.vmap(lambda *a: fn(*a))(*args)
+    return jax.vmap(lambda w, *a: fn(*a, weights=w))(jnp.asarray(weights), *args)
+
+
+def torch_cqp(p, Nc, weights=None, scale_slew_target=True):
+    t = to_torch(p)
+    return tred.assemble_condensed(
+        *(t[k] for k in ARGS), Nc=Nc,
+        weights=None if weights is None else torch.from_numpy(weights),
+        scale_slew_target=scale_slew_target)
+
+
+def _close(a, b, tol=1e-10):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    assert np.max(np.abs(a - b)) <= tol * max(1.0, np.max(np.abs(b)))
+
+
+@pytest.mark.parametrize("weighted,scale_slew_target",
+                         [(False, True), (True, True), (True, False)])
+def test_assemble_condensed_matches_jax(weighted, scale_slew_target):
+    p = problem(0)
+    weights = np.random.default_rng(1).uniform(0.2, 1.0, size=(2, 3)) \
+        if weighted else None
+    ref = jax_cqp(p, 2, weights, scale_slew_target)
+    out = torch_cqp(p, 2, weights, scale_slew_target)
+    for name in tred.CondensedQP._fields:
+        _close(getattr(out, name), getattr(ref, name))
+
+
+def test_arrow_factor_diag_apply_and_recover_match_jax():
+    p = problem(2)
+    Nc, N = 2, 6
+    ref, out = jax_cqp(p, Nc), torch_cqp(p, Nc)
+    rng = np.random.default_rng(3)
+    B, M, nc, nf = 2, 3, out.nc, out.nf
+    wc, wf = rng.uniform(0.1, 5.0, size=(B, nc)), rng.uniform(0.1, 5.0, size=(B, M, nf))
+    bc, bf = rng.normal(size=(B, nc)), rng.normal(size=(B, M, nf))
+
+    def jax_solve(Hcc, Hcf, Hff, wc_, wf_, bc_, bf_):
+        F = jred.arrow_factor_diag(Hcc, Hcf, Hff, wc_, wf_, jitter=1e-7)
+        return jred.arrow_apply(F, bc_, bf_)
+
+    uc_ref, uf_ref = jax.vmap(jax_solve)(ref.Hcc, ref.Hcf, ref.Hff, *map(
+        jnp.asarray, (wc, wf, bc, bf)))
+    F = tred.arrow_factor_diag(out.Hcc, out.Hcf, out.Hff, *map(
+        torch.from_numpy, (wc, wf)), jitter=1e-7)
+    uc, uf = tred.arrow_apply(F, *map(torch.from_numpy, (bc, bf)))
+    _close(uc, uc_ref)
+    _close(uf, uf_ref)
+    # the solve is against K = H + diag([wc; wf]) + jitter I
+    Hz_c, Hz_f = tred.H_apply_factored(out, uc, uf)
+    _close(Hz_c + (torch.from_numpy(wc) + 1e-7) * uc, bc)
+    _close(Hz_f + (torch.from_numpy(wf) + 1e-7) * uf, bf)
+
+    X_ref, U_ref = jax.vmap(partial(jred.recover_XU, N=N))(
+        ref, jnp.asarray(uc_ref), jnp.asarray(uf_ref))
+    X, U = tred.recover_XU(out, uc, uf, N=N)
+    _close(X, X_ref)
+    _close(U, U_ref)
+
+
+def test_cold_arrow_factor_matches_jax():
+    p = problem(4)
+    ref, out = jax_cqp(p, 2), torch_cqp(p, 2)
+    uc_ref, uf_ref = jax.vmap(lambda c: jred.arrow_apply(
+        jred.arrow_factor(c.Hcc, c.Hcf, c.Hff), -c.qc, -c.qf))(ref)
+    uc, uf = tred.arrow_apply(tred.arrow_factor(out.Hcc, out.Hcf, out.Hff),
+                              -out.qc, -out.qf)
+    _close(uc, uc_ref)
+    _close(uf, uf_ref)
