@@ -19,16 +19,18 @@ def _t(a, device, dtype):
 
 def scp_data_from_numpy(d, device, dtype) -> SCPData:
     """A JAX ``SCPData`` (or any object with its fields) -> the port's."""
-    for name in ("params", "u_soc_r"):
-        if getattr(d, name, None) is not None:
-            raise NotImplementedError(
-                f"SCPData.{name} is not ported yet (ROADMAP §1.4/§1.5)")
+    if getattr(d, "u_soc_r", None) is not None:
+        raise NotImplementedError(
+            "SCPData.u_soc_r is not ported yet (ROADMAP §1.4)")
+    params = getattr(d, "params", None)
     return SCPData(*(_t(getattr(d, f), device, dtype)
-                     for f in SCPData._fields if f not in ("params", "u_soc_r")))
+                     for f in SCPData._fields if f not in ("params", "u_soc_r")),
+                   params=None if params is None else _t(params, device, dtype))
 
 
 def warm_from_numpy(warm, device, dtype):
-    """The IPM warm tuple (uc, uf, s, lam) -> tensors; None passes through."""
+    """The IPM warm tuple (uc, uf, s, lam) -> tensors (s and lam carry the
+    state rows when the solver has state boxes); None passes through."""
     if warm is None:
         return None
     return tuple(_t(a, device, dtype) for a in warm)

@@ -1,23 +1,37 @@
-// Batched inverse Cholesky factor for small SPD blocks, one CTA per matrix.
+// Batched inverse Cholesky factor for small SPD blocks (n <= 96), one CTA per
+// matrix.
 //
 //   out[b] = L_b^{-1},  L_b L_b^T = A_b + diag(w_b) + jitter I   (w given)
 //                       L_b L_b^T = A_b + jitter I               (w == NULL)
 //
-// Twin of the TPU kernels `_chol_inv_kernel_small_diag` (w given) and
-// `_chol_inv_kernel_small` (w == NULL) in pmpc_tpu/ops/pallas_chol.py. Only
-// the lower triangle of A is read. The output is the full n x n block with
-// explicit zeros above the diagonal: callers use it as a dense GEMM operand.
+// Twin of the four TPU kernels of pmpc_tpu/ops/pallas_chol.py:
+// `_chol_inv_kernel_small_diag` / `_chol_inv_kernel_big_diag` (w given) and
+// `_chol_inv_kernel_small` / `_chol_inv_kernel_big` (w == NULL). The TPU pair
+// "big" exists because three VMEM buffers stop fitting past n ~ 66; here one
+// body serves every n and what changes with the size is the CTA's thread
+// count (a template parameter: 128 or 256, chosen by the caller) and, above
+// 48 KB of shared memory (f64 from n = 77), the dynamic shared memory opt-in.
+// Any n is taken as it is: no padding to a multiple of 8. Only the lower
+// triangle of A is read. The output is the full n x n block with explicit
+// zeros above the diagonal: callers use it as a dense GEMM operand.
 // A non-positive (or NaN) pivot makes the WHOLE block NaN; the other blocks
 // of the batch are untouched (each CTA owns one matrix).
 //
-// Layout: the block lives in shared memory with a padded row stride n + 1
-// (conflict-free column walks in f32). The factor overwrites the lower
-// triangle column by column (right-looking, 2 barriers per column); the
-// inverse factor is then built in place by right-looking forward
-// substitution, its strictly-lower entries X[i][j] stored TRANSPOSED in the
-// (unused) upper triangle at a[j][i], so L and X never share a slot.
+// Layout: the block lives in shared memory with an odd row stride n | 1
+// (conflict-free column walks; results do not depend on the stride). The
+// factor overwrites the lower triangle column by column (right-looking, 2
+// barriers per column); the inverse factor is then built in place by
+// right-looking forward substitution, its strictly-lower entries X[i][j]
+// stored TRANSPOSED in the (unused) upper triangle at a[j][i], so L and X
+// never share a slot. At n = 96 that is 37,632 B in f32 and 75,264 B in f64.
 // sqrt and divisions are exact (no fast-math): an approximate rsqrt
 // measurably degrades the factor (see pallas_chol.py:84-87).
+//
+// What bounds it: by the roofline, bytes (each block read and written once;
+// the flops are a third of that time), but the kernel runs far from that
+// floor: every FMA of the two triangular sweeps reads and writes shared
+// memory, and each of the 2n column steps waits on two barriers. Several
+// CTAs per SM overlap those waits (6 at n = 90 in f32).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libchol_inv.so chol_inv.cu
@@ -27,10 +41,9 @@
 
 namespace {
 
-constexpr int kMaxN = 64;
-constexpr int kTx = 32;  // threads over columns
-constexpr int kTy = 4;   // threads over rows
-constexpr int kThreads = kTx * kTy;
+constexpr int kMaxN = 96;
+constexpr int kTx = 32;  // threads over columns; TY (template) threads over rows
+constexpr size_t kStaticSmemLimit = 48 * 1024;  // above it: opt-in per kernel
 
 template <typename T>
 __device__ __forceinline__ T quiet_nan();
@@ -43,15 +56,24 @@ __device__ __forceinline__ double quiet_nan<double>() {
   return __longlong_as_double(0x7ff8000000000000LL);
 }
 
-template <typename T, bool HAS_DIAG>
-__global__ void __launch_bounds__(kThreads)
+__host__ __device__ __forceinline__ int row_stride(int n) { return n | 1; }
+
+template <typename T>
+size_t smem_bytes(int n) {
+  return (static_cast<size_t>(n) * row_stride(n) + 2 * n) * sizeof(T);
+}
+
+template <typename T, bool HAS_DIAG, int TY>
+__global__ void __launch_bounds__(kTx * TY)
     chol_inv_kernel(const T* __restrict__ A, const T* __restrict__ w, T jitter,
                     T* __restrict__ out, int n) {
+  constexpr int kTy = TY;
+  constexpr int kThreads = kTx * TY;
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = row_stride(n);
   T* a = reinterpret_cast<T*>(smem_raw);  // n x ld
-  T* ldiag = a + n * (n + 1);             // L[k][k]
+  T* ldiag = a + n * ld;                  // L[k][k]
   T* xdiag = ldiag + n;                   // X[k][k] = 1 / L[k][k]
-  const int ld = n + 1;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * kTx + tx;
   const long long b = blockIdx.x;
@@ -117,38 +139,58 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// One instantiation: opt in to more than 48 KB of dynamic shared memory (once
+// per instantiation and device is enough; the attribute call is cheap and its
+// error is returned like the launch's), then launch.
+template <typename T, bool HAS_DIAG, int TY>
+int launch_one(const T* A, const T* w, T jitter, T* out, long long batch, int n,
+               cudaStream_t s) {
+  const size_t smem = smem_bytes<T>(n);
+  if (smem > kStaticSmemLimit) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        chol_inv_kernel<T, HAS_DIAG, TY>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  chol_inv_kernel<T, HAS_DIAG, TY>
+      <<<dim3(static_cast<unsigned>(batch)), dim3(kTx, TY), smem, s>>>(
+          A, w, jitter, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
-int launch(const void* A, const void* w, double jitter, void* out,
-           long long batch, int n, void* stream) {
-  if (n < 1 || n > kMaxN || batch < 0 || batch > 2147483647LL)
+int launch(const void* A_, const void* w_, double jitter_, void* out_,
+           long long batch, int n, int threads, void* stream) {
+  if (n < 1 || n > kMaxN || batch < 0 || batch > 2147483647LL ||
+      (threads != 128 && threads != 256))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
-  const size_t smem = (static_cast<size_t>(n) * (n + 1) + 2 * n) * sizeof(T);
-  const dim3 grid(static_cast<unsigned>(batch));
-  const dim3 block(kTx, kTy);
+  const T* A = static_cast<const T*>(A_);
+  const T* w = static_cast<const T*>(w_);
+  T* out = static_cast<T*>(out_);
+  const T jitter = static_cast<T>(jitter_);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (w != nullptr) {
-    chol_inv_kernel<T, true><<<grid, block, smem, s>>>(
-        static_cast<const T*>(A), static_cast<const T*>(w), static_cast<T>(jitter),
-        static_cast<T*>(out), n);
-  } else {
-    chol_inv_kernel<T, false><<<grid, block, smem, s>>>(
-        static_cast<const T*>(A), nullptr, static_cast<T>(jitter),
-        static_cast<T*>(out), n);
+    return threads == 128 ? launch_one<T, true, 4>(A, w, jitter, out, batch, n, s)
+                          : launch_one<T, true, 8>(A, w, jitter, out, batch, n, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return threads == 128 ? launch_one<T, false, 4>(A, w, jitter, out, batch, n, s)
+                        : launch_one<T, false, 8>(A, w, jitter, out, batch, n, s);
 }
 
 }  // namespace
 
-// C entry points (ctypes). `w` may be NULL (no diagonal term). Returns the
-// cudaError_t of the launch; 0 on success.
+// C entry points (ctypes). `w` may be NULL (no diagonal term); `threads` is
+// the CTA size, 128 or 256. Returns the cudaError_t of the shared-memory
+// opt-in or of the launch; 0 on success.
 extern "C" int pmpc_chol_inv_f32(const void* A, const void* w, double jitter,
-                                 void* out, long long batch, int n, void* stream) {
-  return launch<float>(A, w, jitter, out, batch, n, stream);
+                                 void* out, long long batch, int n, int threads,
+                                 void* stream) {
+  return launch<float>(A, w, jitter, out, batch, n, threads, stream);
 }
 
 extern "C" int pmpc_chol_inv_f64(const void* A, const void* w, double jitter,
-                                 void* out, long long batch, int n, void* stream) {
-  return launch<double>(A, w, jitter, out, batch, n, stream);
+                                 void* out, long long batch, int n, int threads,
+                                 void* stream) {
+  return launch<double>(A, w, jitter, out, batch, n, threads, stream);
 }

@@ -56,7 +56,8 @@ def condense(x0, f, fx, fu, X_prev, U_prev) -> Tuple[torch.Tensor, torch.Tensor]
     return Ft, torch.stack(xs, dim=-2).reshape(batch + (N * xdim,))
 
 
-def linearize(dynamics: Callable, X: torch.Tensor, U: torch.Tensor):
+def linearize(dynamics: Callable, X: torch.Tensor, U: torch.Tensor,
+              params=None):
     """``(f, fx, fu)`` of a single-step dynamics ``f(x, u)`` at every point.
 
     One forward-mode Jacobian over ``z = [x; u]``: a ``jvp`` of the dynamics
@@ -66,9 +67,13 @@ def linearize(dynamics: Callable, X: torch.Tensor, U: torch.Tensor):
     tangents of ``python float * tensor`` to float64.)
 
     Args:
-        dynamics: (x (xdim,), u (udim,)) -> (xdim,) next state.
+        dynamics: (x (xdim,), u (udim,)) -> (xdim,) next state; with
+            ``params``, (x, u, p (P,)) -> (xdim,).
         X: (..., N, xdim) states entering each step.
         U: (..., N, udim) controls.
+        params: optional (..., P) per-particle dynamics parameters (one row
+            for the N steps of a particle): mapped with the points, not
+            differentiated.
 
     Returns:
         f (..., N, xdim), fx (..., N, xdim, xdim), fu (..., N, xdim, udim)
@@ -77,7 +82,14 @@ def linearize(dynamics: Callable, X: torch.Tensor, U: torch.Tensor):
     k = xdim + udim
     lead = X.shape[:-1]
     z = torch.cat([X, U], dim=-1).reshape(-1, k)
-    fn = torch.func.vmap(lambda zi: dynamics(zi[:xdim], zi[xdim:]))
+    if params is None:
+        fn = torch.func.vmap(lambda zi: dynamics(zi[:xdim], zi[xdim:]))
+    else:
+        N = X.shape[-2]
+        p = params[..., None, :].expand(params.shape[:-1] + (N, params.shape[-1])) \
+            .reshape(z.shape[0], -1)
+        fn_p = torch.func.vmap(lambda zi, pi: dynamics(zi[:xdim], zi[xdim:], pi))
+        fn = lambda z_: fn_p(z_, p)
     basis = torch.eye(k, dtype=z.dtype, device=z.device)[:, None, :] \
         .expand(k, z.shape[0], k)
     y, Jt = torch.func.vmap(lambda t: torch.func.jvp(fn, (z,), (t,)),

@@ -1,21 +1,29 @@
 """Batched inverse Cholesky factor ``Minv = L^{-1}`` of small SPD blocks.
 
-Replaces the TPU kernels of ``pmpc_tpu/ops/pallas_chol.py``:
-- K1 ``_chol_inv_kernel_small_diag`` (``inv_cholesky_diag``): the IPM's
-  per-particle Newton blocks ``Hff + diag(w)``; flagship (2048, 50, 50) f32,
-  once per IPM iteration;
-- K2 ``_chol_inv_kernel_small`` (``inv_cholesky``): the consensus Schur
-  complement (64, 10, 10) and the cold-start factors.
+Replaces the four TPU kernels of ``pmpc_tpu/ops/pallas_chol.py``:
+- K1 ``_chol_inv_kernel_small_diag`` (``inv_cholesky_diag``, n <= 64): the
+  IPM's per-particle Newton blocks ``Hff + diag(w)``; flagship (2048, 50, 50)
+  f32, once per IPM iteration;
+- K2 ``_chol_inv_kernel_small`` (``inv_cholesky``, n <= 64): the consensus
+  Schur complement (64, 10, 10), the cold-start factors, the state-box
+  Newton blocks;
+- K3 ``_chol_inv_kernel_big_diag`` (``inv_cholesky_diag``, 64 < n <= 96): the
+  pod-scale shape's Newton blocks, (2048, 90, 90) f32 at B=32;
+- K4 ``_chol_inv_kernel_big`` (``inv_cholesky``, 64 < n <= 96): the
+  unbounded solve and the cold start at that shape.
 
-Both are one CUDA kernel, ``csrc/chol_inv.cu``, templated on the dtype (f32,
-f64) and on whether a diagonal is added. What bounds it on the H100 is
-latency, not bandwidth: K1 at the flagship reads 2048*50*50*4 B ~ 20 MB a
-call (~6 us at the H100 SXM's 3.35 TB/s peak), while each matrix is a chain
-of ~2n dependent
-column steps. The design keeps that chain in shared memory: one CTA (128
-threads) per matrix, the block loaded once with a padded row stride (at most
-64*65*8 B + 1 KB per CTA, so many CTAs share an SM and hide each other's
-barrier waits), factor and substitution in place, one coalesced write.
+All four are one CUDA kernel body, ``csrc/chol_inv.cu``, templated on the
+dtype (f32, f64), on whether a diagonal is added and on the CTA's thread
+count. The size route is static: `_route` picks the launch counter and the
+thread count (`THREADS`) from n alone. The memory floor of a call is each
+input read once and the output written once, 2*batch*n*n*4 B in f32: ~41 MB
+at the flagship (~12 us at the H100 SXM's 3.35 TB/s peak), ~133 MB at
+(2048, 90, 90) (~40 us). What it actually waits on is latency: each matrix is
+a chain of ~2n dependent column steps with two barriers each. The design
+keeps that chain in shared memory: one CTA per matrix, the block loaded once
+with an odd row stride (at most 75 KB per CTA in f64 at n = 96, 37 KB in f32,
+so several CTAs share an SM and hide each other's barrier waits), factor and
+substitution in place, one coalesced write.
 
 On a CPU tensor each entry point runs its plain PyTorch version
 (``cholesky_ex`` + ``solve_triangular``, NaN where the factor fails); on a
@@ -36,10 +44,18 @@ from pathlib import Path
 
 import torch
 
-MAX_N = 64  # the kernel's limit; larger blocks are ROADMAP K3/K4
+SMALL_N = 64  # K1/K2 up to here, K3/K4 ("_big") above
+MAX_N = 96  # the kernel's limit (the TPU kernels' `_fits_big`)
+# CTA size by route ("" = K1/K2, "_big" = K3/K4), each the faster of 128 and
+# 256 at its route's main shape (PERF.md)
+THREADS = {"": 128, "_big": 256}
 
-# launches of each CUDA entry point (plain CPU calls are not counted)
-LAUNCHES = {"inv_cholesky": 0, "inv_cholesky_diag": 0}
+# launches of each kernel (plain CPU calls are not counted)
+LAUNCHES = {"inv_cholesky": 0, "inv_cholesky_diag": 0,
+            "inv_cholesky_big": 0, "inv_cholesky_diag_big": 0}
+# every (counter name, batch, n, dtype) launched since it was last cleared:
+# what a card-side check has to hold against the plain versions
+SHAPES = set()
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc" / "chol_inv.cu"
@@ -95,24 +111,31 @@ def _lib():
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_double,
                            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                           ctypes.c_void_p]
+                           ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-def _launch(A: torch.Tensor, w, jitter: float) -> torch.Tensor:
+def _route(n: int) -> str:
+    """The route's suffix in `LAUNCHES` and `THREADS`: "" (K1/K2) or "_big"
+    (K3/K4), from the block size alone."""
+    return "" if n <= SMALL_N else "_big"
+
+
+def _launch(A: torch.Tensor, w, jitter: float, threads=None) -> torch.Tensor:
+    """Check the operands and launch; ``threads`` (128 or 256) overrides the
+    route's CTA size (for timing one against the other)."""
     if A.dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(
-            f"chol_inv kernel takes float32/float64, got {A.dtype} "
-            "(other dtypes: ROADMAP K3/K4)")
+            f"chol_inv kernel takes float32/float64, got {A.dtype}")
     if A.ndim != 3 or A.shape[-1] != A.shape[-2]:
         raise ValueError(f"expected (batch, n, n), got {tuple(A.shape)}")
     B, n = A.shape[0], A.shape[-1]
     if not 1 <= n <= MAX_N:
         raise NotImplementedError(
-            f"chol_inv kernel takes 1 <= n <= {MAX_N}, got n={n} "
-            "(larger blocks: ROADMAP K3/K4)")
+            f"chol_inv kernel takes 1 <= n <= {MAX_N}, got n={n} (larger "
+            "blocks: ROADMAP §2, the twin of block_chol.inv_cholesky)")
     if not A.is_contiguous():
         raise ValueError("A must be contiguous")
     if w is not None:
@@ -126,7 +149,8 @@ def _launch(A: torch.Tensor, w, jitter: float) -> torch.Tensor:
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = fn(A.data_ptr(), None if w is None else w.data_ptr(),
-                 float(jitter), out.data_ptr(), B, n, stream)
+                 float(jitter), out.data_ptr(), B, n,
+                 THREADS[_route(n)] if threads is None else threads, stream)
     if err != 0:
         raise RuntimeError(f"chol_inv kernel launch failed: cudaError {err}")
     return out
@@ -141,12 +165,17 @@ def _on_cuda(A: torch.Tensor) -> bool:
     raise NotImplementedError(f"no chol_inv path for device {A.device}")
 
 
+def _count(name: str, A: torch.Tensor) -> None:
+    LAUNCHES[name] += 1
+    SHAPES.add((name, A.shape[0], A.shape[-1], A.dtype))
+
+
 def inv_cholesky(A: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
     """Minv = L^{-1}, L L' = A + jitter I, for A (batch, n, n)."""
     if not _on_cuda(A):
         return inv_cholesky_plain(A, jitter)
     out = _launch(A, None, jitter)
-    LAUNCHES["inv_cholesky"] += 1
+    _count("inv_cholesky" + _route(A.shape[-1]), A)
     return out
 
 
@@ -157,7 +186,7 @@ def inv_cholesky_diag(A: torch.Tensor, w: torch.Tensor,
     if not _on_cuda(A):
         return inv_cholesky_diag_plain(A, w, jitter)
     out = _launch(A, w, jitter)
-    LAUNCHES["inv_cholesky_diag"] += 1
+    _count("inv_cholesky_diag" + _route(A.shape[-1]), A)
     return out
 
 

@@ -3,9 +3,10 @@
 Twin of ``pmpc_tpu/ops/linalg.py:142-191``. The factor is always the inverse
 Cholesky factor ``Minv = L^{-1}`` and every solve is two batched matmuls
 (`block_chol.inv_chol_apply`). The device decides the route
-(`chol_inv`): a CUDA tensor goes to the hand-written kernel, which raises
-``NotImplementedError`` for what it does not take (n > 64, dtypes other
-than f32/f64: ROADMAP K3/K4); a CPU tensor goes to the plain version.
+(`chol_inv`): a CUDA tensor goes to the hand-written kernel (n <= 96, f32
+or f64), which raises ``NotImplementedError`` for what it does not take
+(n > 96: ROADMAP §2, the twin of ``block_chol.inv_cholesky``; other dtypes);
+a CPU tensor goes to the plain version.
 """
 
 from __future__ import annotations

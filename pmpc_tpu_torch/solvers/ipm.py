@@ -1,14 +1,17 @@
 """Batched primal-dual interior-point method for the condensed consensus QP.
 
-Twin of ``pmpc_tpu/solvers/ipm.py``, box-only path: control bounds
-(``has_u=True``), no state boxes, no SOC cones, no extra rows, Mehrotra
+Twin of ``pmpc_tpu/solvers/ipm.py``, box path: control bounds (``has_u``)
+and state boxes (``has_x``), no SOC cones, no extra rows, Mehrotra
 predictor-corrector, no Gondzio correctors, ``mu_target = 0``:
 
-    min 0.5 z'Hz + q'z   s.t.  lo_u <= u <= hi_u.
+    min 0.5 z'Hz + q'z   s.t.  lo_u <= u <= hi_u,  lo_x <= Ft z + g <= hi_x.
 
-Every Newton matrix is H plus a diagonal, so each iteration costs one
-diagonal-adding per-particle factor (`arrow_factor_diag`, kernel K1) and one
-consensus Schur factor (K2), both reused by the predictor and the corrector.
+With control bounds only, every Newton matrix is H plus a diagonal, so each
+iteration costs one diagonal-adding per-particle factor (`arrow_factor_diag`,
+kernel K1, or K3 past n = 64) and one consensus Schur factor (K2), both
+reused by the predictor and the corrector. State boxes add per-particle
+``Ft' D Ft`` terms (`box_weighted_K`); the Newton blocks are then formed and
+go to the factor without a diagonal (K2, or K4 past n = 64).
 
 The JAX core runs one scenario under ``jax.vmap``; here the scenario axis B
 is explicit. Every reduction is per lane (over all dims but B), and the
@@ -27,23 +30,26 @@ import torch
 
 from ..utils import lane_where
 from .reduced import CondensedQP, H_apply_factored, arrow_apply, arrow_factor, \
-    arrow_factor_diag
+    arrow_factor_diag, z_to_w
 
 
 class BoxBounds(NamedTuple):
-    """Two-sided control bounds in the consensus layout (+-inf where absent).
-    Consensus bounds follow particle 0 (``lqp_utils.jl:323-331``)."""
+    """Two-sided bounds in the consensus layout (+-inf where absent).
+    Consensus bounds follow particle 0 (``lqp_utils.jl:323-331``). The state
+    bounds are read only with ``has_x``."""
 
     lo_c: torch.Tensor  # (B, nc)    consensus control lower bounds
     hi_c: torch.Tensor  # (B, nc)
     lo_f: torch.Tensor  # (B, M, nf) free control bounds
     hi_f: torch.Tensor  # (B, M, nf)
+    lo_x: Optional[torch.Tensor] = None  # (B, M, NX) state bounds
+    hi_x: Optional[torch.Tensor] = None  # (B, M, NX)
 
 
 class IPMState(NamedTuple):
     uc: torch.Tensor  # (B, nc)
     uf: torch.Tensor  # (B, M, nf)
-    s: torch.Tensor  # (B, mtot) flat slacks [c_lo; c_hi; f_lo; f_hi]
+    s: torch.Tensor  # (B, mtot) flat slacks [c_lo; c_hi; f_lo; f_hi; x_lo; x_hi]
     lam: torch.Tensor  # (B, mtot) flat multipliers, same order
     mu: torch.Tensor  # (B,) duality measure
     done: torch.Tensor  # (B,) bool: converged OR diverged, stop updating
@@ -55,6 +61,25 @@ class IPMState(NamedTuple):
 
 def _unsupported(what: str, item: str):
     raise NotImplementedError(f"ipm_core: {what} is not ported yet ({item})")
+
+
+def box_weighted_K(cqp: CondensedQP, wc, wf, wx, Ftc, Ftf, has_u: bool,
+                   has_x: bool):
+    """Arrow blocks of ``H + G' diag(w) G`` for the box-constraint Jacobians:
+    diagonal updates from control boxes (wc (B, nc), wf (B, M, nf)),
+    per-particle ``Ft' D Ft`` from state boxes (wx (B, M, NX); Ftc/Ftf the
+    consensus/free columns of Ft)."""
+    Kcc, Kcf, Kff = cqp.Hcc, cqp.Hcf, cqp.Hff
+    if has_u:
+        Kcc = Kcc + torch.diag_embed(wc)
+        Kff = Kff + torch.diag_embed(wf)
+    if has_x:
+        DFtf = wx[..., None] * Ftf
+        Kff = Kff + Ftf.mT @ DFtf
+        if cqp.nc > 0:
+            Kcc = Kcc + (Ftc.mT @ (wx[..., None] * Ftc)).sum(dim=-3)
+            Kcf = Kcf + Ftc.mT @ DFtf
+    return Kcc, Kcf, Kff
 
 
 def ipm_core(
@@ -76,14 +101,14 @@ def ipm_core(
 ):
     """Run the predictor-corrector IPM on a batch. Returns (uc, uf, stats).
 
-    ``warm`` is (uc (B,nc), uf (B,M,nf), s (B,mtot), lam (B,mtot));
-    ``tol_dynamic`` (B,) overrides the static tol ``10**tol_exp`` where
-    larger. ``stats``: mu, iters, converged, failed (all (B,)), s, lam.
+    All box constraint groups live in ONE flat (B, mtot) vector, order
+    [c_lo; c_hi; f_lo; f_hi; x_lo; x_hi]; the state rows exist only with
+    ``has_x``. ``has_u=False`` ignores the control bounds entirely (their
+    rows are masked). ``warm`` is (uc (B,nc), uf (B,M,nf), s (B,mtot),
+    lam (B,mtot)); ``tol_dynamic`` (B,) overrides the static tol
+    ``10**tol_exp`` where larger. ``stats``: mu, iters, converged, failed
+    (all (B,)), s, lam.
     """
-    if not has_u:
-        _unsupported("has_u=False", "ROADMAP §1.4")
-    if has_x:
-        _unsupported("state boxes (has_x)", "ROADMAP §1.4, box_weighted_K")
     if has_soc:
         _unsupported("SOC cones (has_soc)", "ROADMAP §1.4, coneipm._soc_*")
     if has_ex:
@@ -102,28 +127,57 @@ def ipm_core(
         tol = torch.maximum(tol_dynamic.to(dtype), tol)
     sqrt_tol = torch.sqrt(tol)
     tau = torch.tensor(0.99 if tau is None else tau, dtype=dtype, device=dev)
+    NX = cqp.g.shape[-1]
+    Ftc = Ftf = None
+    if has_x:  # (B, M, NX, nc/nf), loop-invariant matmul operands
+        Ftc, Ftf = cqp.Ft[..., :nc].contiguous(), cqp.Ft[..., nc:].contiguous()
     mnf = M * nf
-    o_chi, o_flo, o_fhi = nc, 2 * nc, 2 * nc + mnf
+    mnx = M * NX if has_x else 0  # state rows only when state bounds are active
+    o_chi, o_flo, o_fhi, o_xlo, o_xhi = (
+        nc, 2 * nc, 2 * nc + mnf, 2 * nc + 2 * mnf, 2 * nc + 2 * mnf + mnx)
 
-    lo_flat = torch.cat([bounds.lo_c, bounds.hi_c,
-                         bounds.lo_f.reshape(B, -1), bounds.hi_f.reshape(B, -1)], -1)
-    mask = torch.isfinite(lo_flat)
+    lo_parts = [bounds.lo_c, bounds.hi_c,
+                bounds.lo_f.reshape(B, -1), bounds.hi_f.reshape(B, -1)]
+    if not has_u:
+        # the control bounds are IGNORED: finite entries would activate mask
+        # rows whose barrier terms `box_weighted_K` skips
+        lo_parts = [torch.full_like(a, -torch.inf) for a in lo_parts]
+    if has_x:
+        lo_parts += [bounds.lo_x.reshape(B, -1), bounds.hi_x.reshape(B, -1)]
+    mask = torch.isfinite(torch.cat(lo_parts, -1))
     n_act = torch.clamp(mask.sum(-1).to(dtype), min=1.0)
+
+    def states(uc, uf):
+        """Ft z as (B, M, NX)."""
+        return (cqp.Ft @ z_to_w(uc, uf)[..., None])[..., 0]
 
     def slack_vals(uc, uf):
         """s = h - Gz as one flat (B, mtot) vector (garbage on masked rows)."""
-        return torch.cat([uc - bounds.lo_c, bounds.hi_c - uc,
-                          (uf - bounds.lo_f).reshape(B, -1),
-                          (bounds.hi_f - uf).reshape(B, -1)], -1)
+        vals = [uc - bounds.lo_c, bounds.hi_c - uc,
+                (uf - bounds.lo_f).reshape(B, -1),
+                (bounds.hi_f - uf).reshape(B, -1)]
+        if has_x:
+            x = states(uc, uf) + cqp.g
+            vals += [(x - bounds.lo_x).reshape(B, -1),
+                     (bounds.hi_x - x).reshape(B, -1)]
+        return torch.cat(vals, -1)
 
     def g_dot_z(duc, duf):
         duf_f = duf.reshape(B, -1)
-        return torch.cat([-duc, duc, -duf_f, duf_f], -1)
+        parts = [-duc, duc, -duf_f, duf_f]
+        if has_x:
+            dx = states(duc, duf).reshape(B, -1)
+            parts += [-dx, dx]
+        return torch.cat(parts, -1)
 
     def gT_dot(v):
         """(G' v) split into consensus/free contributions."""
         bc = v[:, o_chi:o_flo] - v[:, :nc]
-        bf = (v[:, o_fhi:] - v[:, o_flo:o_fhi]).reshape(B, M, nf)
+        bf = (v[:, o_fhi:o_xlo] - v[:, o_flo:o_fhi]).reshape(B, M, nf)
+        if has_x:
+            dv = (v[:, o_xhi:] - v[:, o_xlo:o_xhi]).reshape(B, M, NX, 1)
+            bc = bc + (Ftc.mT @ dv)[..., 0].sum(dim=-2)
+            bf = bf + (Ftf.mT @ dv)[..., 0]
         return bc, bf
 
     def mu_of(s_, lam_):
@@ -162,8 +216,18 @@ def ipm_core(
         # capped scaling ratios: uncapped lam/s overflows the f32 factor late
         w = torch.where(mask, torch.clamp(lam / s, max=w_max), 0.0)
         wc_d = w[:, :nc] + w[:, o_chi:o_flo]
-        wf_d = (w[:, o_flo:o_fhi] + w[:, o_fhi:]).reshape(B, M, nf)
-        F = arrow_factor_diag(cqp.Hcc, cqp.Hcf, cqp.Hff, wc_d, wf_d, jitter=kappa)
+        wf_d = (w[:, o_flo:o_fhi] + w[:, o_fhi:o_xlo]).reshape(B, M, nf)
+        if has_u and not has_x:
+            # box-only fast path: K = H + diag(w), the diagonal folded into
+            # the factor kernel, so the Newton matrix never materializes
+            F = arrow_factor_diag(cqp.Hcc, cqp.Hcf, cqp.Hff, wc_d, wf_d,
+                                  jitter=kappa)
+        else:
+            wx = (w[:, o_xlo:o_xhi] + w[:, o_xhi:]).reshape(B, M, NX) \
+                if has_x else None
+            F = arrow_factor(*box_weighted_K(cqp, wc_d, wf_d, wx, Ftc, Ftf,
+                                             has_u=has_u, has_x=has_x),
+                             jitter=kappa)
 
         def newton_rhs(r_c):
             v = torch.where(mask, (lam * r_p - r_c) / s, 0.0)

@@ -237,6 +237,21 @@ def arrow_apply(F: ArrowFactors, bc, bf):
     return uc, uf
 
 
+def solve_eq(cqp: CondensedQP, refine: int = 2):
+    """Solve the unconstrained condensed QPs. Returns (uc (B, nc), uf (B, M, nf)).
+
+    ``refine`` rounds of iterative refinement with FACTORED-form residuals
+    recover O(kappa(Ft) eps) accuracy from the O(kappa^2 eps) explicit-H
+    factorization (essential in float32)."""
+    F = arrow_factor(cqp.Hcc, cqp.Hcf, cqp.Hff)
+    uc, uf = arrow_apply(F, -cqp.qc, -cqp.qf)
+    for _ in range(refine):
+        Hc, Hf = H_apply_factored(cqp, uc, uf)
+        duc, duf = arrow_apply(F, -(cqp.qc + Hc), -(cqp.qf + Hf))
+        uc, uf = uc + duc, uf + duf
+    return uc, uf
+
+
 def z_to_w(uc: torch.Tensor, uf: torch.Tensor) -> torch.Tensor:
     """Per-particle stacked control vectors w_i = [uc; uf_i]:
     uc (..., nc), uf (..., M, nf) -> (..., M, NU)."""

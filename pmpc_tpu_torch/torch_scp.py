@@ -1,8 +1,9 @@
-"""The SCP loop: linearize -> condensed assembly -> box IPM -> recover ->
-Anderson acceleration -> early exit, over a batch of scenarios.
+"""The SCP loop: linearize -> condensed assembly -> box IPM (or the
+unconstrained solve) -> recover -> Anderson acceleration -> early exit, over
+a batch of scenarios.
 
-Twin of ``pmpc_tpu/jax_scp.py`` for ``method="condensed"`` with control
-bounds. The JAX solver takes one (M, ...) problem and is batched with
+Twin of ``pmpc_tpu/jax_scp.py`` for ``method="condensed"`` with control and
+state boxes. The JAX solver takes one (M, ...) problem and is batched with
 ``jax.vmap``; this solver takes the batch itself, (B, M, ...) arrays, and
 every per-scenario quantity (iteration count, residual, done flag, AA
 window) is a (B, ...) tensor.
@@ -21,8 +22,8 @@ import torch
 
 from .dynamics import linearize
 from .solvers.ipm import BoxBounds, ipm_core
-from .solvers.reduced import assemble_condensed, recover_XU
-from .utils import lane_where, matmul_precision_scope
+from .solvers.reduced import assemble_condensed, recover_XU, solve_eq
+from .utils import default_device, lane_where, matmul_precision_scope
 
 
 class SCPData(NamedTuple):
@@ -45,7 +46,7 @@ class SCPData(NamedTuple):
     u_u: torch.Tensor  # (..., M, N, udim)
     x_l: torch.Tensor  # (..., M, N, xdim)
     x_u: torch.Tensor  # (..., M, N, xdim)
-    params: Any = None  # per-particle dynamics params: not ported
+    params: Any = None  # (..., M, P) per-particle dynamics parameters
     u_soc_r: Any = None  # per-stage control-norm radii: not ported
 
 
@@ -53,11 +54,19 @@ def make_scp_data(
     x0, Q, R,
     X_ref=None, U_ref=None, X_prev=None, U_prev=None,
     reg_x=1.0, reg_u=1e-2, slew_reg=0.0, slew_reg0=0.0, slew_um1=None,
-    u_l=None, u_u=None, x_l=None, x_u=None, dtype=None, device=None,
+    u_l=None, u_u=None, x_l=None, x_u=None, params=None, dtype=None,
+    device=None,
 ) -> SCPData:
     """Constructor with reference-compatible defaults. Every field lands on
-    ``device`` (the device of ``Q`` when it is a tensor and ``device`` is
-    None) in ``dtype`` (that of ``Q`` when None)."""
+    ``device`` in ``dtype`` (that of ``Q`` when None). With ``device=None``
+    the device is that of the first tensor among ``Q``, ``R``, ``x0``; when
+    none of them is a tensor it is the card (`utils.default_device`, which
+    raises where there is none)."""
+    if device is None:
+        device = next((a.device for a in (Q, R, x0)
+                       if isinstance(a, torch.Tensor)), None)
+        if device is None:
+            device = default_device()
     Q = torch.as_tensor(Q, dtype=dtype, device=device)
     dt, dev = Q.dtype, Q.device
     R = torch.as_tensor(R, dtype=dt, device=dev)
@@ -83,6 +92,8 @@ def make_scp_data(
         u_u=arr(u_u, lead + (N, udim), torch.inf),
         x_l=arr(x_l, lead + (N, xdim), -torch.inf),
         x_u=arr(x_u, lead + (N, xdim), torch.inf),
+        params=None if params is None
+        else torch.as_tensor(params, dtype=dt, device=dev),
     )
 
 
@@ -124,7 +135,18 @@ def build_scp_solver(
 ) -> Callable:
     """Build the batched SCP solver for fixed problem dimensions.
 
-    ``dynamics`` is a torch step ``f(x (xdim,), u (udim,)) -> (xdim,)``.
+    ``dynamics`` is a torch step ``f(x (xdim,), u (udim,)) -> (xdim,)``, or
+    ``f(x, u, p (P,))`` when the data carries per-particle ``params``
+    (B, M, P), which are mapped with the particles and not differentiated.
+    ``has_u_bounds=False`` ignores the control bounds in the data; with no
+    bounds at all the subproblem is the unconstrained solve (`solve_eq`).
+    ``lin_cost_fn(X_prev, U_prev, data) -> (cx, cu)`` linearizes an extra
+    cost at the current iterate; here it receives the batched (B, M, ...)
+    tensors (the JAX solver hands it one (M, ...) problem) and its
+    gradients (or None) shift the references by ``Q^-1 cx`` / ``R^-1 cu``.
+    ``collect_stats=True`` runs all ``max_it`` iterations (no early exit)
+    and adds ``info["scan_stats"]``: ipm_iters, resid and, with bounds,
+    ipm_failed, ipm_converged, accepted, each (B, max_it).
     ``accel="AA"`` is Type-II Anderson acceleration of the SCP fixed point:
     the next linearization point combines the last ``accel_window``
     subproblem solutions; the RETURNED solution is always the last accepted
@@ -136,19 +158,10 @@ def build_scp_solver(
     """
     if method != "condensed":
         _unsupported(f"method={method!r}", "ROADMAP §1.7")
-    if not has_u_bounds:
-        _unsupported("the unconstrained solve (has_u_bounds=False)",
-                     "ROADMAP §1.3, solve_eq")
-    if has_x_bounds:
-        _unsupported("state boxes", "ROADMAP §1.4")
     if has_u_soc:
         _unsupported("SOC cones", "ROADMAP §1.4")
-    if lin_cost_fn is not None:
-        _unsupported("lin_cost_fn", "ROADMAP §1.5")
     if relin_stale:
         _unsupported("relin_stale", "ROADMAP §1.11")
-    if collect_stats:
-        _unsupported("collect_stats", "ROADMAP §1.5")
     if ipm_gondzio or not ipm_predictor or mu_target > 0:
         _unsupported("ipm_gondzio, ipm_predictor=False and mu_target > 0",
                      "ROADMAP §1.4")
@@ -157,8 +170,11 @@ def build_scp_solver(
     Nc = Nc if Nc >= 0 else N
     if M == 1:
         Nc = 0  # single particle: consensus is a no-op; keep stage structure
+    has_bounds = has_u_bounds or has_x_bounds
     AW = int(accel_window)
     nc, nx = Nc * udim, M * N * xdim
+    # `jax_scp.hot_matmul_precision` needs no twin: every core here already
+    # runs IEEE f32 matmuls with TF32 off (`matmul_precision_scope`)
 
     def _aa_combine(histF, histZ, nh, Fk, Zk):
         """Type-II Anderson weights over each lane's valid window (masked
@@ -185,29 +201,44 @@ def build_scp_solver(
         X_prev, U_prev, it, done, resid, resid_m, warm, acc = carry
         B = X_prev.shape[0]
         X_ = torch.cat([data.x0[:, :, None, :], X_prev[:, :, :-1, :]], dim=2)
-        f, fx, fu = linearize(dynamics, X_, U_prev)
+        f, fx, fu = linearize(dynamics, X_, U_prev, data.params)
+        X_ref, U_ref = data.X_ref, data.U_ref
+        if lin_cost_fn is not None:
+            cx, cu = lin_cost_fn(X_prev, U_prev, data)
+            if cx is not None:
+                X_ref = X_ref - torch.linalg.solve(data.Q, cx[..., None])[..., 0]
+            if cu is not None:
+                U_ref = U_ref - torch.linalg.solve(data.R, cu[..., None])[..., 0]
         cqp = assemble_condensed(
             data.x0, f, fx, fu, X_prev, U_prev, data.Q, data.R,
-            data.X_ref, data.U_ref, data.reg_x, data.reg_u, data.slew_reg,
+            X_ref, U_ref, data.reg_x, data.reg_u, data.slew_reg,
             data.slew_reg0, data.slew_um1, Nc=Nc)
         dt = cqp.qf.dtype
-        ul = data.u_l.reshape(B, M, N * udim)
-        uu = data.u_u.reshape(B, M, N * udim)
-        bounds = BoxBounds(lo_c=ul[:, 0, :nc], hi_c=uu[:, 0, :nc],
-                           lo_f=ul[:, :, nc:], hi_f=uu[:, :, nc:])
-        f64 = dt == torch.float64
-        # inexact-Newton forcing: early SCP iterations only need a loose
-        # subproblem solve; the tolerance tightens with the SCP residual
-        tol_dyn = None
-        if adaptive_tol:
-            r = torch.clamp(resid, max=1e3)  # resid starts at +inf
-            tol_dyn = torch.clamp(1e-3 * r * r, 0.0, adaptive_cap).to(dt)
-        uc, uf, stats = ipm_core(
-            cqp, bounds, has_u=True, has_x=False, iters=ipm_iters,
-            tol_exp=ipm_tol_exp if ipm_tol_exp is not None else (-8 if f64 else -6),
-            kappa=kappa if kappa is not None else (0.0 if f64 else 1e-7),
-            warm=warm, tol_dynamic=tol_dyn, tau=ipm_tau)
-        warm_new = (uc, uf, stats["s"], stats["lam"]) if warm_start else warm
+        stats = None
+        if has_bounds:
+            ul = data.u_l.reshape(B, M, N * udim)
+            uu = data.u_u.reshape(B, M, N * udim)
+            bounds = BoxBounds(lo_c=ul[:, 0, :nc], hi_c=uu[:, 0, :nc],
+                               lo_f=ul[:, :, nc:], hi_f=uu[:, :, nc:],
+                               lo_x=data.x_l.reshape(B, M, N * xdim),
+                               hi_x=data.x_u.reshape(B, M, N * xdim))
+            f64 = dt == torch.float64
+            # inexact-Newton forcing: early SCP iterations only need a loose
+            # subproblem solve; the tolerance tightens with the SCP residual
+            tol_dyn = None
+            if adaptive_tol:
+                r = torch.clamp(resid, max=1e3)  # resid starts at +inf
+                tol_dyn = torch.clamp(1e-3 * r * r, 0.0, adaptive_cap).to(dt)
+            uc, uf, stats = ipm_core(
+                cqp, bounds, has_u=has_u_bounds, has_x=has_x_bounds,
+                iters=ipm_iters,
+                tol_exp=ipm_tol_exp if ipm_tol_exp is not None else (-8 if f64 else -6),
+                kappa=kappa if kappa is not None else (0.0 if f64 else 1e-7),
+                warm=warm, tol_dynamic=tol_dyn, tau=ipm_tau)
+            warm_new = (uc, uf, stats["s"], stats["lam"]) if warm_start else warm
+        else:
+            uc, uf = solve_eq(cqp)
+            warm_new = warm
         X, U = recover_XU(cqp, uc, uf, N=N)
 
         dX, dU = X - X_prev, U - U_prev
@@ -218,7 +249,9 @@ def build_scp_solver(
         new_resid = resid_m_new.amax(-1)
         # a non-finite solution, or a gave-up IPM (its iterate has no
         # feasibility guarantee), is rejected: keep the last accepted iterate
-        bad = ~torch.isfinite(new_resid) | stats["failed"]
+        bad = ~torch.isfinite(new_resid)
+        if has_bounds:
+            bad = bad | stats["failed"]
         now_done = (new_resid < res_tol) & ~bad
 
         freeze = done | bad
@@ -242,24 +275,34 @@ def build_scp_solver(
             acc_out = tuple(_sel_tree(freeze, old, new) for old, new in zip(
                 acc, (histF_n, histZ_n, nh_n, X, U)))
         keep = lambda old, new: _sel_tree(freeze, old, new)
+        ys = None
+        if collect_stats:
+            ys = dict(ipm_iters=stats["iters"] if has_bounds
+                      else torch.zeros_like(it), resid=new_resid)
+            if has_bounds:
+                ys.update(ipm_failed=stats["failed"],
+                          ipm_converged=stats["converged"], accepted=~freeze)
         return (keep(X_prev, X_lin), keep(U_prev, U_lin),
                 it + torch.where(done, 0, 1).to(it.dtype), done | now_done,
                 keep(resid, new_resid), keep(resid_m, resid_m_new),
-                keep(warm, warm_new), acc_out)
+                keep(warm, warm_new), acc_out), ys
 
     def init_warm_acc(data: SCPData, state=None):
         B = data.x0.shape[0]
         dt, dev = data.Q.dtype, data.Q.device
         warm0 = None
-        if warm_start:
+        if has_bounds and warm_start:
             if state is not None:
                 warm0 = tuple(state)
             else:
                 # neutral warm point for the first iteration: primal from
                 # U_prev, slacks/multipliers at the cold-start heuristics
+                # (state rows exist in the flat layout only with state boxes)
                 nf = (N - Nc) * udim
+                mtot = 2 * nc + 2 * M * nf \
+                    + (2 * M * N * xdim if has_x_bounds else 0)
                 Uflat = data.U_prev.reshape(B, M, -1)
-                s_w = torch.ones((B, 2 * nc + 2 * M * nf), dtype=dt, device=dev)
+                s_w = torch.ones((B, mtot), dtype=dt, device=dev)
                 warm0 = (Uflat[:, :, :nc].mean(1), Uflat[:, :, nc:], s_w, s_w)
         acc0 = None
         if accel:
@@ -273,8 +316,6 @@ def build_scp_solver(
     def solver(data: SCPData, state=None):
         """``state``: the IPM warm tuple a previous call returned in
         ``info["solver_state"]`` (built with ``return_state=True``)."""
-        if data.params is not None:
-            _unsupported("per-particle dynamics params", "ROADMAP §1.5")
         if data.u_soc_r is not None:
             _unsupported("SOC radii (u_soc_r)", "ROADMAP §1.4")
         with matmul_precision_scope():
@@ -287,14 +328,22 @@ def build_scp_solver(
                      torch.full((B,), torch.inf, dtype=dt, device=dev),
                      torch.full((B, M), torch.inf, dtype=dt, device=dev),
                      warm0, acc0)
-            # early exit, as `jax.vmap(lax.while_loop)` runs it: iterate while
-            # any lane is active; inactive lanes keep their carry
-            while True:
-                active = ~carry[3] & (carry[2] < max_it)
-                if not bool(active.any()):
-                    break
-                new = iteration(data, carry)
-                carry = tuple(_sel_tree(active, n, o) for n, o in zip(new, carry))
+            ys = []
+            if collect_stats:
+                # the fixed-length `lax.scan`: converged lanes freeze in place
+                for _ in range(max_it):
+                    carry, y = iteration(data, carry)
+                    ys.append(y)
+            else:
+                # early exit, as `jax.vmap(lax.while_loop)` runs it: iterate
+                # while any lane is active; inactive lanes keep their carry
+                while True:
+                    active = ~carry[3] & (carry[2] < max_it)
+                    if not bool(active.any()):
+                        break
+                    new, _ = iteration(data, carry)
+                    carry = tuple(_sel_tree(active, n, o)
+                                  for n, o in zip(new, carry))
             X, U, it, done, resid, resid_m, warm_fin, acc_fin = carry
             if accel:
                 # the last accepted RAW subproblem solution: feasible to IPM
@@ -303,6 +352,9 @@ def build_scp_solver(
             X_traj = torch.cat([data.x0[:, :, None, :], X], dim=2)
             info = dict(iters=it, resid=resid, converged=resid < res_tol,
                         resid_particle=resid_m)
+            if collect_stats:
+                info["scan_stats"] = {k: torch.stack([y[k] for y in ys], dim=1)
+                                      for k in ys[0]}
             if return_state:
                 info["solver_state"] = warm_fin
             return X_traj, U, info

@@ -1,4 +1,5 @@
-"""Numeric policy of the port: matmul precision and the working dtype.
+"""Numeric and placement policy of the port: matmul precision, the working
+dtype and the default device.
 
 Twin of ``pmpc_tpu/utils.py:125-200``. On the TPU the f32 hot cores ran at
 'high' (3-pass bf16); on the card the port runs IEEE f32 throughout, with TF32
@@ -40,3 +41,14 @@ def default_dtype() -> torch.dtype:
     """The working dtype: torch's default floating dtype (float32 unless the
     caller set float64)."""
     return torch.get_default_dtype()
+
+
+def default_device() -> torch.device:
+    """Where an entry point puts its tensors when the caller names no device:
+    the card. There is no quiet CPU run: without a CUDA device this raises,
+    and a caller that wants the CPU (the tests) says ``device="cpu"``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device (torch.cuda.is_available() is false): pass "
+            "device=\"cpu\" to run on the CPU")
+    return torch.device("cuda")

@@ -1,4 +1,4 @@
-"""Inverse-Cholesky kernel K1/K2 (`pmpc_tpu_torch.ops.chol_inv`).
+"""Inverse-Cholesky kernels K1-K4 (`pmpc_tpu_torch.ops.chol_inv`).
 
 The plain PyTorch versions are held against the TPU kernels (Pallas, in
 interpret mode) and against numpy in f64. The CUDA kernel is held against the
@@ -66,10 +66,33 @@ def test_plain_matches_pallas_interpret(pallas_interpret, n):
     assert np.max(np.abs(out1 - ref1)) < 5e-5
 
 
-def test_plain_matches_numpy_f64():
+@pytest.mark.parametrize("n", [12, 72])
+def test_plain_matches_big_pallas_interpret(pallas_interpret, monkeypatch, n):
+    """The single-buffer in-place TPU kernels (K3/K4), forced as
+    tests/test_pallas_chol.py forces them; n=12 also covers their identity
+    padding to a multiple of 8, n=72 is a size only they take."""
+    import jax.numpy as jnp
+
+    monkeypatch.setattr(pallas_interpret, "_fits_small", lambda n: False)
+    rng = np.random.default_rng(100 + n)
+    A = _spd(rng, 3, n, np.float32)
+    w = rng.uniform(0.1, 2.0, size=(3, n)).astype(np.float32)
+    ref4 = np.asarray(pallas_interpret.pallas_inv_cholesky(
+        jnp.asarray(A), jitter=1e-3))
+    ref3 = np.asarray(pallas_interpret.pallas_inv_cholesky_diag(
+        jnp.asarray(A), jnp.asarray(w), jitter=1e-3))
+    out4 = chol_inv.inv_cholesky(torch.from_numpy(A), 1e-3).numpy()
+    out3 = chol_inv.inv_cholesky_diag(
+        torch.from_numpy(A), torch.from_numpy(w), 1e-3).numpy()
+    assert np.max(np.abs(out4 - ref4)) < 5e-5
+    assert np.max(np.abs(out3 - ref3)) < 5e-5
+
+
+@pytest.mark.parametrize("n", [50, 90])
+def test_plain_matches_numpy_f64(n):
     rng = np.random.default_rng(0)
-    A = _spd(rng, 4, 50)
-    w = rng.uniform(0.1, 2.0, size=(4, 50))
+    A = _spd(rng, 4, n)
+    w = rng.uniform(0.1, 2.0, size=(4, n))
     out = chol_inv.inv_cholesky_diag(torch.from_numpy(A), torch.from_numpy(w),
                                      1e-7).numpy()
     ref = _ref_inv_chol(A + np.stack([np.diag(wi + 1e-7) for wi in w]))
@@ -102,7 +125,13 @@ def test_cpu_calls_are_not_launches():
     A = torch.from_numpy(_spd(np.random.default_rng(5), 2, 6))
     chol_inv.inv_cholesky(A)
     chol_inv.inv_cholesky_diag(A, torch.ones(2, 6, dtype=A.dtype))
-    assert chol_inv.LAUNCHES == {"inv_cholesky": 0, "inv_cholesky_diag": 0}
+    A = torch.from_numpy(_spd(np.random.default_rng(5), 2, 70))
+    chol_inv.inv_cholesky(A)
+    chol_inv.inv_cholesky_diag(A, torch.ones(2, 70, dtype=A.dtype))
+    assert chol_inv.LAUNCHES == {
+        "inv_cholesky": 0, "inv_cholesky_diag": 0,
+        "inv_cholesky_big": 0, "inv_cholesky_diag_big": 0}
+    assert not chol_inv.SHAPES  # the record of launched shapes stays empty too
 
 
 # -- on the card ---------------------------------------------------------------
@@ -115,7 +144,8 @@ def _rel_err(a, b):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.float64, 1e-10)])
 @pytest.mark.parametrize("B,n", [(2048, 50), (64, 10), (37, 1), (5, 7),
-                                 (33, 33), (9, 64)])
+                                 (33, 33), (9, 64), (37, 65), (2048, 90),
+                                 (37, 96)])
 def test_kernel_matches_plain(cuda, dtype, tol, B, n):
     rng = np.random.default_rng(n)
     A = torch.from_numpy(_spd(rng, B, n)).to(cuda, dtype)
@@ -124,7 +154,10 @@ def test_kernel_matches_plain(cuda, dtype, tol, B, n):
     out1 = chol_inv.inv_cholesky_diag(A, w, 1e-7)
     out2 = chol_inv.inv_cholesky(A, 1e-7)
     torch.cuda.synchronize()
-    assert chol_inv.LAUNCHES == {"inv_cholesky": 1, "inv_cholesky_diag": 1}
+    big = "_big" if n > 64 else ""  # K3/K4 past n = 64, counted apart
+    assert {k for k, v in chol_inv.LAUNCHES.items() if v} == {
+        "inv_cholesky" + big, "inv_cholesky_diag" + big}
+    assert sum(chol_inv.LAUNCHES.values()) == 2
     assert _rel_err(out1, chol_inv.inv_cholesky_diag_plain(A, w, 1e-7)) < tol
     assert _rel_err(out2, chol_inv.inv_cholesky_plain(A, 1e-7)) < tol
     assert (torch.triu(out1, 1) == 0).all() and (torch.triu(out2, 1) == 0).all()
@@ -145,8 +178,8 @@ def test_kernel_nan_contract(cuda):
 
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda):
-    A = torch.eye(65, device=cuda).expand(2, 65, 65).contiguous()
-    with pytest.raises(NotImplementedError, match="K3/K4"):
+    A = torch.eye(97, device=cuda).expand(2, 97, 97).contiguous()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         chol_inv.inv_cholesky(A)
     with pytest.raises(NotImplementedError):
         chol_inv.inv_cholesky(A[:, :8, :8].contiguous().half())

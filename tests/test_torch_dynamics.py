@@ -3,6 +3,7 @@
 import numpy as np
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from fixtures import unicycle_step
@@ -46,6 +47,30 @@ def test_linearize_matches_jax():
     out = tdyn.linearize(dubins, _t(X), _t(U))
     for a, b in zip(out, ref):
         _close(a, b)
+
+
+def test_linearize_with_params_matches_jax_and_keeps_f32():
+    """Per-particle (v_scale, w_scale, T): mapped with the particles, as
+    `jax_scp.linearize_particles` maps them, and not differentiated."""
+    rng = np.random.default_rng(4)
+    X = rng.normal(size=(2, 3, 5, 4))
+    U = rng.normal(size=(2, 3, 5, 2))
+    P = np.stack([rng.uniform(0.5, 1.5, size=(2, 3)), rng.uniform(0.5, 1.5, size=(2, 3)),
+                  rng.uniform(0.1, 0.4, size=(2, 3))], -1)
+
+    def one(x, u, p):
+        return jdyn.linearize(
+            lambda x_, u_: unicycle_step(x_, u_, (p[0], p[1], p[2])), x, u)
+
+    ref = jax.vmap(jax.vmap(one))(jnp.asarray(X), jnp.asarray(U), jnp.asarray(P))
+    dyn = lambda x, u, p: dubins(x, u, (p[0], p[1], p[2]))
+    out = tdyn.linearize(dyn, _t(X), _t(U), _t(P))
+    for a, b in zip(out, ref):
+        _close(a, b)
+    out32 = tdyn.linearize(dyn, _t(X).float(), _t(U).float(), _t(P).float())
+    for a, b in zip(out32, ref):
+        assert a.dtype == torch.float32
+        _close(a.double(), b, tol=1e-5)
 
 
 def test_condense_matches_jax():

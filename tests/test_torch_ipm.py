@@ -1,5 +1,6 @@
-"""The box-only `ipm_core` against `jax.vmap(pmpc_tpu.solvers.ipm.ipm_core)`,
-f64, over B = 3 lanes with different bounds and warm points."""
+"""The box `ipm_core` (control bounds, state boxes) against
+`jax.vmap(pmpc_tpu.solvers.ipm.ipm_core)`, f64, over B = 3 lanes with
+different bounds and warm points."""
 
 import numpy as np
 import pytest
@@ -11,6 +12,7 @@ import jax.numpy as jnp
 from pmpc_tpu.solvers import ipm as jipm
 from pmpc_tpu_torch.convert import warm_from_numpy
 from pmpc_tpu_torch.solvers import ipm as tipm
+from pmpc_tpu_torch.solvers.reduced import solve_eq, z_to_w
 from test_torch_reduced import jax_cqp, problem, torch_cqp
 
 torch.set_num_threads(1)
@@ -95,7 +97,7 @@ def test_lane_alone_equals_lane_in_batch():
         lo[:, 0, :NCV], hi[:, 0, :NCV], lo[:, :, NCV:], hi[:, :, NCV:])))
     uc, uf, st = tipm.ipm_core(cqp, bounds, warm=warm, tol_dynamic=tol_dyn, **KW)
     for b in range(B):
-        lane = lambda t: t[b:b + 1]
+        lane = lambda t: None if t is None else t[b:b + 1]
         uc1, uf1, st1 = tipm.ipm_core(
             type(cqp)(*map(lane, cqp)), tipm.BoxBounds(*map(lane, bounds)),
             warm=tuple(map(lane, warm)), tol_dynamic=lane(tol_dyn), **KW)
@@ -110,7 +112,64 @@ def test_unported_flags_raise():
     inf_c = torch.full((1, 2), torch.inf, dtype=torch.float64)
     inf_f = torch.full((1, 2, 6), torch.inf, dtype=torch.float64)
     bounds = tipm.BoxBounds(-inf_c, inf_c, -inf_f, inf_f)
-    for kw in (dict(has_x=True), dict(has_soc=True), dict(gondzio=1),
+    for kw in (dict(has_soc=True), dict(gondzio=1),
                dict(predictor=False), dict(mu_target=0.1), dict(has_ex=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tipm.ipm_core(cqp, bounds, **kw)
+
+
+def _solve_both_xbox(seed, has_u, warm_start):
+    """State boxes on every lane: a band around the states at u = 0 (strictly
+    inside every control box, so the problem is strictly feasible), narrow
+    enough that the unconstrained solution leaves it; absent on some rows."""
+    rng = np.random.default_rng(seed)
+    p = problem(seed, B=B, M=M, N=N, xdim=XDIM, udim=UDIM)
+    lo, hi = _bounds(rng)
+    ref_cqp, cqp = jax_cqp(p, NC), torch_cqp(p, NC)
+    g = cqp.g.numpy()
+    lo_x = g - rng.uniform(0.05, 1.0, size=g.shape)
+    hi_x = g + rng.uniform(0.05, 1.0, size=g.shape)
+    lo_x[:, :, ::5], hi_x[:, :, 2::7] = -np.inf, np.inf
+    uc0, uf0 = solve_eq(cqp)
+    x_free = ((cqp.Ft @ z_to_w(uc0, uf0)[..., None])[..., 0]).numpy() + g
+    assert ((x_free < lo_x) | (x_free > hi_x)).reshape(B, -1).any(-1).all()
+    warm = None
+    if warm_start:
+        mtot = MTOT + 2 * M * N * XDIM
+        warm = _warm(rng)[:2] + (rng.uniform(0.5, 2.0, size=(B, mtot)),
+                                 rng.uniform(0.01, 1.0, size=(B, mtot)))
+    kw = dict(KW, iters=60, has_u=has_u, has_x=True)
+
+    jb = jipm.BoxBounds(*map(jnp.asarray, (
+        lo[:, 0, :NCV], hi[:, 0, :NCV], lo[:, :, NCV:], hi[:, :, NCV:], lo_x, hi_x)))
+    jw = None if warm is None else tuple(map(jnp.asarray, warm))
+    ref = jax.vmap(lambda c, b, w: jipm.ipm_core(c, b, warm=w, **kw))(
+        ref_cqp, jb, jw)
+    tb = tipm.BoxBounds(*(torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        lo[:, 0, :NCV], hi[:, 0, :NCV], lo[:, :, NCV:], hi[:, :, NCV:], lo_x, hi_x)))
+    out = tipm.ipm_core(cqp, tb, warm=warm_from_numpy(warm, "cpu", torch.float64),
+                        **kw)
+    x = ((cqp.Ft @ z_to_w(out[0], out[1])[..., None])[..., 0] + cqp.g).numpy()
+    return ref, out, (x, lo_x, hi_x, lo, hi)
+
+
+@pytest.mark.parametrize("has_u,warm_start",
+                         [(True, False), (True, True), (False, False), (False, True)])
+def test_ipm_core_state_boxes_match_vmapped_jax(has_u, warm_start):
+    (uc_r, uf_r, st_r), (uc, uf, st), (x, lo_x, hi_x, lo, hi) = \
+        _solve_both_xbox(30, has_u, warm_start)
+    assert np.max(np.abs(uc.numpy() - np.asarray(uc_r))) < 1e-8
+    assert np.max(np.abs(uf.numpy() - np.asarray(uf_r))) < 1e-8
+    np.testing.assert_array_equal(st["iters"].numpy(), np.asarray(st_r["iters"]))
+    np.testing.assert_array_equal(st["converged"].numpy(),
+                                  np.asarray(st_r["converged"]))
+    np.testing.assert_array_equal(st["failed"].numpy(), np.asarray(st_r["failed"]))
+    assert st["s"].shape == np.asarray(st_r["s"]).shape
+    assert st["converged"].all()
+    assert (x >= lo_x - 1e-6).all() and (x <= hi_x + 1e-6).all()
+    u = z_to_w(uc, uf).numpy()
+    in_box = (u >= lo - 1e-6).all() and (u <= hi + 1e-6).all()
+    if has_u:
+        assert in_box
+    else:  # the control bounds in `bounds` are ignored
+        assert not in_box
