@@ -10,10 +10,14 @@ happens and the run exits non-zero before the two JSON lines:
    at every shape a phase below launches: K1 (2048, 50, 50) and (8, 50, 50),
    K2 (64, 10, 10), (32, 10, 10), (1, 10, 10) and (2048, 50, 50) (the
    state-box Newton blocks), K3 and K4 (2048, 90, 90); a ragged batch of 37
-   at n in {1, 7, 33, 64, 65, 72, 95, 96}, the NaN contract at n = 50 and
-   90, n = 97 refused; then each kernel timed with CUDA events at its main
+   at n in {1, 7, 8, 9, 33, 63, 64, 65, 72, 95, 96}; the NaN contract at
+   n = 50 and 90 (a non-SPD block, a bad pivot inside a panel, a NaN entry, a
+   NaN weight); blocks with weights over twelve orders of magnitude, where
+   the kernel's residual must stay within four times the plain version's;
+   n = 97 refused; then each kernel timed with CUDA events at its main
    shape (K2 also at (2048, 50, 50)) beside its plain version, the library
-   calls and its bound, and 128 against 256 threads at n = 50 and 90;
+   calls and its bound, and K2 at (64, 10, 10) beside the launch of a kernel
+   that does nothing;
 4. the accuracy-probe config in f32 against the JAX package's f64 answer
    (benchmarks/accuracy_ref_u64.npy), to 1e-3;
 5. the headline program: B=64 scenarios, M=32, N=30, Nc=5, f32, Anderson
@@ -109,13 +113,21 @@ def library(diag, A, w):
 
 def bound(diag, A, w):
     """(ms, "bytes" | "operations"): the least time the card could take, the
-    larger of every input read once and the output written once over the
-    memory rate, and n^3/3 (factor) + n^3/3 (triangular inverse) flops per
-    block over the f32 rate."""
+    larger of the bytes the function must move (the lower triangle of A and
+    the weights read once, the full block written once) over the memory rate,
+    and n^3/3 (factor) + n^3/3 (triangular inverse) flops per block over the
+    f32 rate."""
     B, n = A.shape[0], A.shape[-1]
-    nbytes = (2 * A.numel() + (w.numel() if diag else 0)) * A.element_size()
+    nbytes = B * (n * (n + 1) // 2 + n * n + (n if diag else 0)) * A.element_size()
     t_bytes, t_ops = nbytes / PEAK_BYTES, B * (2.0 / 3.0) * n ** 3 / PEAK_F32
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def factor_residual(Minv, K):
+    """|Minv K Minv' - I|_max with the products in f64."""
+    M = Minv.double()
+    eye = torch.eye(K.shape[-1], dtype=torch.float64, device=K.device)
+    return (M @ K @ M.mT - eye).abs().max().item()
 
 
 def check(diag, A, w):
@@ -183,22 +195,47 @@ def phase_kernels(dev, card):
             err = check(diag, *spd_inputs(B, n, dtype, dev))
             if (B, n) == K2_WIDE and dtype == torch.float32:
                 wide = {"shape": [B, n, n], "max_abs_err": err}
-    for n in (1, 7, 33, 64, 65, 72, 95, 96):
+    for n in (1, 7, 8, 9, 33, 63, 64, 65, 72, 95, 96):
         for dtype in (torch.float32, torch.float64):
             A, w = spd_inputs(37, n, dtype, dev, seed=n)
             for diag in (True, False):
                 check(diag, A, w)
-    # NaN contract: a non-SPD block is all NaN, its neighbours are untouched
+    # NaN contract: a block that is not SPD (all of it, one pivot in the
+    # middle of a panel, a NaN below the diagonal, a NaN weight) is all NaN,
+    # its neighbours are untouched
     for n in (50, 90):
-        A, w = spd_inputs(5, n, torch.float32, dev, seed=9)
-        A[3] = -2.5 * torch.eye(n, device=dev)
-        for diag in (True, False):
-            out, ref = run(diag, A, w), run(diag, A, w, plain=True)
-            ok = [0, 1, 2, 4]
-            require(torch.isnan(out[3]).all() and torch.isfinite(out[ok]).all()
-                    and (out[ok] - ref[ok]).abs().max() <= TOL[A.dtype] * ref[ok].abs().max(),
-                    f"NaN contract broken at n={n}, diag={diag}")
-    print("  NaN contract (n = 50, 90): the non-SPD block is all NaN, its neighbours match")
+        for bad in ("block", "pivot", "nan_entry", "nan_weight"):
+            A, w = spd_inputs(5, n, torch.float32, dev, seed=9)
+            if bad == "block":
+                A[3] = -2.5 * torch.eye(n, device=dev)
+            elif bad == "pivot":
+                A[3, 11, 11] = -5.0
+            elif bad == "nan_entry":
+                A[3, n - 1, n - 2] = torch.nan
+            else:
+                w[3, 13] = torch.nan
+            for diag in (True, False) if bad != "nan_weight" else (True,):
+                out, ref = run(diag, A, w), run(diag, A, w, plain=True)
+                ok = [0, 1, 2, 4]
+                require(torch.isnan(out[3]).all() and torch.isnan(ref[3]).all()
+                        and torch.isfinite(out[ok]).all()
+                        and (out[ok] - ref[ok]).abs().max() <= TOL[A.dtype] * ref[ok].abs().max(),
+                        f"NaN contract broken at n={n}, diag={diag}, bad {bad}")
+    print("  NaN contract (n = 50, 90; non-SPD block, bad pivot inside a panel, NaN "
+          "entry, NaN weight): that block is all NaN, its neighbours match")
+    # conditioning: weights log-uniform over [1e-6, 1e6], as the IPM's late
+    # iterations give them. The kernel takes its sums in another order than
+    # the library's factor, not by another algorithm, so its residual may
+    # differ from the plain version's by a small factor but no more: 4x.
+    for n in (50, 90):
+        A, _ = spd_inputs(256, n, torch.float32, dev, seed=11)
+        w = torch.from_numpy(10.0 ** np.random.default_rng(12).uniform(
+            -6, 6, size=(256, n))).to(dev, torch.float32)
+        K = A.double() + torch.diag_embed(w.double() + JITTER)
+        res, ref = (factor_residual(run(True, A, w, plain=pl), K) for pl in (False, True))
+        print(f"  conditioning (256, {n}, {n}) f32, w in [1e-6, 1e6]: "
+              f"|Minv K Minv' - I|_max kernel {res:.3e}, plain {ref:.3e}")
+        require(res <= 4 * ref, f"kernel residual {res:.3e} > 4 x plain {ref:.3e} at n={n}")
     try:
         chol_inv.inv_cholesky(torch.eye(97, device=dev).expand(2, 97, 97).contiguous())
         require(False, "n = 97 was not refused")
@@ -225,16 +262,11 @@ def phase_kernels(dev, card):
               f"{r['plain_ms']:.4f} ms, library (cholesky_ex + solve_triangular) "
               f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}% of it) [{card}]")
-    # the CTA size behind each route's choice: 128, 256, 256, 128 threads
-    for n, dtype in ((50, torch.float32), (90, torch.float32), (90, torch.float64)):
-        A, w = spd_inputs(2048, n, dtype, dev)
-        for diag in (True, False):
-            t = [time_ms(lambda: chol_inv._launch(A, w if diag else None, JITTER, threads=th))
-                 for th in (128, 256, 256, 128)]
-            print(f"  (2048, {n}, {n}) {str(dtype)[6:]} {'diag' if diag else 'plain-A'}: "
-                  f"128 threads {(t[0] + t[3]) / 2:.4f} ms, 256 threads "
-                  f"{(t[1] + t[2]) / 2:.4f} ms (the route uses "
-                  f"{chol_inv.THREADS[chol_inv._route(n)]}) [{card}]")
+    # K2's main shape is launch-bound: its floor is a kernel that does nothing
+    k2 = results["inv_cholesky"]
+    k2["launch_floor_ms"] = time_ms(chol_inv.empty_launch)
+    print(f"  inv_cholesky (64, 10, 10) f32: kernel {k2['ms']:.4f} ms beside "
+          f"{k2['launch_floor_ms']:.4f} ms for the launch of an empty kernel [{card}]")
     return results
 
 

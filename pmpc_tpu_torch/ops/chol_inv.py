@@ -14,16 +14,22 @@ Replaces the four TPU kernels of ``pmpc_tpu/ops/pallas_chol.py``:
 
 All four are one CUDA kernel body, ``csrc/chol_inv.cu``, templated on the
 dtype (f32, f64), on whether a diagonal is added and on the CTA's thread
-count. The size route is static: `_route` picks the launch counter and the
-thread count (`THREADS`) from n alone. The memory floor of a call is each
-input read once and the output written once, 2*batch*n*n*4 B in f32: ~41 MB
-at the flagship (~12 us at the H100 SXM's 3.35 TB/s peak), ~133 MB at
-(2048, 90, 90) (~40 us). What it actually waits on is latency: each matrix is
-a chain of ~2n dependent column steps with two barriers each. The design
-keeps that chain in shared memory: one CTA per matrix, the block loaded once
-with an odd row stride (at most 75 KB per CTA in f64 at n = 96, 37 KB in f32,
-so several CTAs share an SM and hide each other's barrier waits), factor and
-substitution in place, one coalesced write.
+count, which the C side picks from n alone (32 threads up to n = 64, 64
+above); `_route` names the launch counter the same way. The memory floor of
+a call is the lower triangle of A (and w) read once and the full block
+written once, batch*(n(n+1)/2 + n*n + n)*4 B in f32: ~31 MB at the flagship
+(~9 us at the H100 SXM's 3.35 TB/s peak), ~101 MB at (2048, 90, 90)
+(~30 us). The kernel runs at about a sixth of
+it: a matrix is a chain of ceil(n / 8) dependent panels, and what it waits
+on is that chain's latency (a serial stretch on one warp for each 8 x 8
+diagonal block, three barriers a panel), not memory and not the FMA units.
+The design keeps the chain short and many chains in flight: one small CTA
+per matrix; the lower triangle alone in shared memory (half the space, twice
+the matrices an SM holds); one right-looking sweep that builds the factor
+and its inverse together panel by panel; the diagonal blocks in registers
+with warp shuffles and one division a pivot; the trailing updates as
+register-tiled 4 x 4 products fed by 16-byte shared loads; asynchronous
+copies in, one coalesced write out. PERF.md has the times beside the bound.
 
 On a CPU tensor each entry point runs its plain PyTorch version
 (``cholesky_ex`` + ``solve_triangular``, NaN where the factor fails); on a
@@ -44,11 +50,10 @@ from pathlib import Path
 
 import torch
 
+from . import block_chol
+
 SMALL_N = 64  # K1/K2 up to here, K3/K4 ("_big") above
 MAX_N = 96  # the kernel's limit (the TPU kernels' `_fits_big`)
-# CTA size by route ("" = K1/K2, "_big" = K3/K4), each the faster of 128 and
-# 256 at its route's main shape (PERF.md)
-THREADS = {"": 128, "_big": 256}
 
 # launches of each kernel (plain CPU calls are not counted)
 LAUNCHES = {"inv_cholesky": 0, "inv_cholesky_diag": 0,
@@ -111,21 +116,22 @@ def _lib():
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_double,
                            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_void_p]
+                           ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.pmpc_empty_launch.argtypes = [ctypes.c_void_p]
+        lib.pmpc_empty_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
 def _route(n: int) -> str:
-    """The route's suffix in `LAUNCHES` and `THREADS`: "" (K1/K2) or "_big"
-    (K3/K4), from the block size alone."""
+    """The route's suffix in `LAUNCHES`: "" (K1/K2) or "_big" (K3/K4), from
+    the block size alone, as the C side picks its instantiation."""
     return "" if n <= SMALL_N else "_big"
 
 
-def _launch(A: torch.Tensor, w, jitter: float, threads=None) -> torch.Tensor:
-    """Check the operands and launch; ``threads`` (128 or 256) overrides the
-    route's CTA size (for timing one against the other)."""
+def _launch(A: torch.Tensor, w, jitter: float) -> torch.Tensor:
+    """Check the operands and launch."""
     if A.dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(
             f"chol_inv kernel takes float32/float64, got {A.dtype}")
@@ -135,7 +141,7 @@ def _launch(A: torch.Tensor, w, jitter: float, threads=None) -> torch.Tensor:
     if not 1 <= n <= MAX_N:
         raise NotImplementedError(
             f"chol_inv kernel takes 1 <= n <= {MAX_N}, got n={n} (larger "
-            "blocks: ROADMAP §2, the twin of block_chol.inv_cholesky)")
+            "blocks: linalg.spd_factor sends them to block_chol.inv_cholesky)")
     if not A.is_contiguous():
         raise ValueError("A must be contiguous")
     if w is not None:
@@ -149,11 +155,18 @@ def _launch(A: torch.Tensor, w, jitter: float, threads=None) -> torch.Tensor:
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = fn(A.data_ptr(), None if w is None else w.data_ptr(),
-                 float(jitter), out.data_ptr(), B, n,
-                 THREADS[_route(n)] if threads is None else threads, stream)
+                 float(jitter), out.data_ptr(), B, n, stream)
     if err != 0:
         raise RuntimeError(f"chol_inv kernel launch failed: cudaError {err}")
     return out
+
+
+def empty_launch() -> None:
+    """Launch a kernel that does nothing on the current stream: what any
+    launch costs, the floor under a launch-bound shape. Not a counted kernel."""
+    err = _lib().pmpc_empty_launch(torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: cudaError {err}")
 
 
 def _on_cuda(A: torch.Tensor) -> bool:
@@ -192,14 +205,8 @@ def inv_cholesky_diag(A: torch.Tensor, w: torch.Tensor,
 
 def inv_cholesky_plain(A: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the same result, NaN blocks
-    where the factor fails."""
-    n = A.shape[-1]
-    eye = torch.eye(n, dtype=A.dtype, device=A.device)
-    L, info = torch.linalg.cholesky_ex(A + jitter * eye)
-    Minv = torch.linalg.solve_triangular(
-        L, eye.expand(A.shape).contiguous(), upper=False)
-    return torch.where((info > 0)[..., None, None],
-                       torch.full_like(Minv, float("nan")), Minv)
+    where the factor fails (the library route, `block_chol.inv_cholesky`)."""
+    return block_chol.inv_cholesky(A, jitter)
 
 
 def inv_cholesky_diag_plain(A: torch.Tensor, w: torch.Tensor,
