@@ -33,6 +33,22 @@ happens and the run exits non-zero before the two JSON lines:
    (K2 at 50 x 50 and at 10 x 10);
 9. every (kernel, batch, n, dtype) that phases 4-8 launched and phase 3 did
    not hold against its plain version is held against it now;
+10. the O(N) Riccati route against the condensed route on the card, f64: the
+   flagship instance at B=4 (M=32, N=30, Nc=5), 8 SCP iterations with tight
+   IPM solves: U within 1e-7 and equal IPM iteration counts per SCP
+   iteration;
+11. the headline program through the Riccati route: B=64, M=32, N=30, Nc=5,
+   f32, Anderson acceleration; |U_riccati - U_condensed| against phase 5's
+   answer is reported (two f32 fixed points at res_tol=1e-3);
+12. the long-horizon configuration (one Dubins car, M=1, control boxes, state
+   boxes +-6, slew, f32) at N=280 and N=140 with max_it=4 and max_it=12:
+   ms per SCP iteration as (t12 - t4) / 8; N=280 stacked to B=64, max_it=4;
+   N=280 in f64 beside f32; controls and states within their boxes, and the
+   returned trajectory's defect against the dynamics linearized at it;
+13. the pod-scale shape (config 5) through the Riccati route, f32 and f64
+   (f64 must converge);
+phases 10-13 reach no hand-written kernel (the JAX package's Riccati path
+reaches no Pallas kernel either): their launch counts must stay 0;
 then one JSON line for the kernels and, last, one JSON line for the run. Every
 solver phase sets the launch counts to 0 before its timed call and reads them
 after it.
@@ -47,8 +63,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pmpc_tpu_torch.flagship import (HEADLINE_KW, flagship, podscale, probe,
-                                     stack_varied)
+from pmpc_tpu_torch.dynamics import dynamics_violation, linearize
+from pmpc_tpu_torch.flagship import (HEADLINE_KW, dubins, flagship, long_horizon,
+                                     podscale, probe, stack_varied)
 from pmpc_tpu_torch.ops import chol_inv
 from pmpc_tpu_torch.utils import matmul_precision_scope
 
@@ -57,6 +74,11 @@ TOL = {torch.float32: 1e-4, torch.float64: 1e-10}  # relative, cond(A) <~ 1e2
 PROBE_TOL = 1e-3  # the repo's f32 accuracy envelope (BASELINE.md)
 B_FLAGSHIP, B_POD = 64, 32
 V_BOX = 1.2
+B_AGREE = 4  # phase 10: depth cut only, the widths stay
+X_BOX = 6.0  # the long-horizon configuration's state box
+# the returned trajectory's largest per-step defect against the car's dynamics,
+# by max_it (the SCP residual is still large after 4 iterations)
+DEFECT_MAX = {4: 1e-2, 12: 1e-4}
 JITTER = 1e-7
 SOURCE = "pmpc_tpu_torch/csrc/chol_inv.cu"
 # name -> (TPU kernel it replaces, adds a diagonal, main-path shape (batch, n),
@@ -290,10 +312,13 @@ def phase_probe(dev):
     require(k1 > 0 and k1 == k2, f"kernel launches on the probe path: {launches}")
 
 
-def timed_call(solver, stack):
+def timed_call(solver, stack, warm_solver=None):
     """One warm-up call, then one timed call with the launch counts reset
-    before it and read after it: (X, U, info, seconds, launches)."""
-    solver(stack)
+    before it and read after it: (X, U, info, seconds, launches). The long
+    Riccati calls launch the same small kernels hundreds of thousands of
+    times: they are warmed by ``warm_solver``, a solver of the same shapes
+    with fewer SCP iterations."""
+    (warm_solver or solver)(stack)
     torch.cuda.synchronize()
     chol_inv.reset_launch_counts()
     t0 = time.perf_counter()
@@ -330,7 +355,7 @@ def phase_flagship(dev, card):
     require(only_launched(launches, ("inv_cholesky_diag", "inv_cholesky"))
             and launches["inv_cholesky_diag"] == launches["inv_cholesky"],
             f"flagship launches {launches}: expected K1 == K2 > 0 and no other")
-    return launches
+    return launches, U
 
 
 def phase_podscale(dev, card):
@@ -419,6 +444,130 @@ def phase_launched_shapes(dev):
     require(seen <= CHECKED, "a launched shape was not held against its plain version")
 
 
+def no_kernel(tag, launches):
+    require(only_launched(launches, []),
+            f"[{tag}] the Riccati route launched a chol_inv kernel: {launches}")
+
+
+def phase_riccati_agrees(dev, card):
+    """Riccati against condensed on the card in f64: identical Mehrotra
+    steps, only the Newton solver differs."""
+    kw = dict(max_it=8, res_tol=1e-7, ipm_iters=40, ipm_tol_exp=-10, collect_stats=True,
+              adaptive_tol=False, dtype=torch.float64, device=dev)
+    out = {}
+    for method in ("condensed", "riccati"):
+        solver, data = flagship(method=method, **kw)
+        out[method] = timed_call(solver, stack_varied(data, B_AGREE))
+    (_, Uc, ic, dtc, lc), (Xr, Ur, ir, dtr, lr) = out["condensed"], out["riccati"]
+    err = (Ur - Uc).abs().max().item()
+    its_c, its_r = (i["scan_stats"]["ipm_iters"] for i in (ic, ir))
+    print(f"[10] riccati vs condensed, flagship instance B={B_AGREE} M=32 N=30 Nc=5 f64, "
+          f"8 SCP iterations: |U_riccati - U_condensed|_inf = {err:.3e} (tol 1e-7), IPM "
+          f"iterations per SCP iteration (lane 0) riccati {its_r[0].tolist()} condensed "
+          f"{its_c[0].tolist()}; {dtr * 1e3:.1f} ms/call riccati, {dtc * 1e3:.1f} ms/call "
+          f"condensed [{card}]; launches riccati {lr}")
+    require(torch.isfinite(Xr).all() and torch.isfinite(Ur).all(),
+            "[10] riccati f64 output is not finite")
+    require(err <= 1e-7, f"[10] riccati and condensed differ by {err:.3e} > 1e-7 in f64")
+    require(torch.equal(its_c, its_r), "[10] riccati and condensed took different IPM "
+            "iteration counts")
+    require(lc["inv_cholesky_diag"] > 0, "[10] the condensed run launched no K1")
+    no_kernel(10, lr)
+
+
+def phase_riccati_flagship(dev, card, U_condensed):
+    solver, data = flagship(dtype=torch.float32, device=dev, method="riccati", **HEADLINE_KW)
+    X, U, info, dt, launches = timed_call(solver, stack_varied(data, B_FLAGSHIP))
+    frac, _, _ = report(11, f"flagship through the riccati route B={B_FLAGSHIP} M=32 N=30 "
+                        "Nc=5 f32 AA", info, dt, launches, card)
+    print(f"    max |u| = {U.abs().max().item():.6f}; |U_riccati - U_condensed|_inf = "
+          f"{(U - U_condensed).abs().max().item():.3e} (two f32 fixed points at "
+          "res_tol=1e-3: reported, not gated)")
+    require(torch.isfinite(X).all() and torch.isfinite(U).all()
+            and U.shape == (B_FLAGSHIP, 32, 30, 2),
+            "[11] riccati flagship output is not finite or has the wrong shape")
+    require(frac >= 0.95, f"[11] riccati flagship converged_frac {frac} < 0.95")
+    require(U.abs().max().item() <= 1 + 1e-5, "[11] the control box is violated")
+    no_kernel(11, launches)
+
+
+def defect(X, U):
+    """Largest per-step violation of the dynamics linearized at the returned
+    trajectory itself (there it is x_j - f(x_{j-1}, u_j): how far the
+    iterate is from a trajectory of the car), and the lane totals' largest."""
+    x0, Xn = X[:, :, 0], X[:, :, 1:]
+    f, fx, fu = linearize(dubins, X[:, :, :-1], U)
+    total, viols = dynamics_violation(x0, f, fx, fu, Xn, U, Xn, U)
+    return viols.max().item(), total.max().item()
+
+
+def long_call(N, max_it, B, dtype, dev):
+    """(X, U, info, seconds, launches) of the long-horizon configuration:
+    the one problem as it is (B=1), or stacked to B lanes with varied x0.
+    Warmed by one SCP iteration at the same shapes."""
+    solver, data = long_horizon(N, dtype, device=dev, max_it=max_it)
+    warm_solver, _ = long_horizon(N, dtype, device=dev, max_it=1)
+    return timed_call(solver, stack_varied(data, B, scale=0.0 if B == 1 else 0.05),
+                      warm_solver)
+
+
+def phase_long_horizon(dev, card):
+    f32 = torch.float32
+    for N in (280, 140):
+        t = {}
+        for max_it in (4, 12):
+            X, U, info, t[max_it], launches = long_call(N, max_it, 1, f32, dev)
+            worst, total = defect(X, U)
+            print(f"[12] long horizon N={N} M=1 f32 riccati (boxes + slew) max_it={max_it}: "
+                  f"{t[max_it] * 1e3:.1f} ms/call, scp iters {info['iters'].tolist()}, resid "
+                  f"{info['resid'].max().item():.3e}, max |u| {U.abs().max().item():.6f}, "
+                  f"max |x| {X.abs().max().item():.4f}, dynamics defect per step max "
+                  f"{worst:.3e} (sum {total:.3e}) [{card}]")
+            require(torch.isfinite(X).all() and torch.isfinite(U).all()
+                    and U.shape == (1, 1, N, 2), f"[12] N={N} output is not finite")
+            require(U.abs().max().item() <= 1 + 1e-5, f"[12] N={N}: the control box is violated")
+            require(X.abs().max().item() <= X_BOX + 1e-4, f"[12] N={N}: the state box is violated")
+            require(worst <= DEFECT_MAX[max_it],
+                    f"[12] N={N} max_it={max_it}: dynamics defect {worst:.3e} > "
+                    f"{DEFECT_MAX[max_it]:g}")
+            no_kernel(12, launches)
+            if N == 280 and max_it == 4:
+                U32 = U
+        print(f"    N={N}: {(t[12] - t[4]) / 8 * 1e3:.1f} ms per SCP iteration "
+              f"((t12 - t4) / 8) [{card}]")
+    # the same call over 64 lanes: about the same time while launches bound it
+    X, U, info, dt, launches = long_call(280, 4, B_FLAGSHIP, f32, dev)
+    print(f"[12] long horizon N=280 stacked to B={B_FLAGSHIP}, max_it=4: {dt * 1e3:.1f} ms/call, "
+          f"max |u| {U.abs().max().item():.6f}, max |x| {X.abs().max().item():.4f} [{card}]")
+    require(torch.isfinite(X).all() and torch.isfinite(U).all(), "[12] B=64 output is not finite")
+    require(U.abs().max().item() <= 1 + 1e-5 and X.abs().max().item() <= X_BOX + 1e-4,
+            "[12] B=64: a box is violated")
+    no_kernel(12, launches)
+    X, U, info, dt, launches = long_call(280, 4, 1, torch.float64, dev)
+    err = (U32.double() - U).abs().max().item()
+    print(f"[12] long horizon N=280 f64, max_it=4: {dt * 1e3:.1f} ms/call; "
+          f"|U32 - U64|_inf = {err:.3e} [{card}]")
+    require(torch.isfinite(U).all(), "[12] N=280 f64 output is not finite")
+    no_kernel(12, launches)
+
+
+def phase_riccati_podscale(dev, card):
+    what = f"pod-scale through the riccati route B={B_POD} M=64 N=50 Nc=5 box"
+    for dtype, name in ((torch.float32, "f32"), (torch.float64, "f64")):
+        solver, data = podscale(dtype, device=dev, method="riccati")
+        warm_solver, _ = podscale(dtype, device=dev, method="riccati", max_it=2)
+        X, U, info, dt, launches = timed_call(
+            solver, stack_varied(data, B_POD, scale=0.02), warm_solver)
+        frac, resid, _ = report(13, f"{what} {name} AA", info, dt, launches, card)
+        print(f"    {name} converged_frac at 2.5e-3: {frac:.4f}; at 1e-3: "
+              f"{float((resid < 1e-3).mean()):.4f}")
+        require(torch.isfinite(X).all() and torch.isfinite(U).all()
+                and U.shape == (B_POD, 64, 50, 2),
+                f"[13] riccati pod-scale {name} output is not finite or has the wrong shape")
+        no_kernel(13, launches)
+    require(frac >= 0.95, f"[13] {what} f64 converged_frac {frac} < 0.95 at 2.5e-3")
+
+
 def main():
     card = phase_card()
     dev = torch.device("cuda", 0)
@@ -428,11 +577,16 @@ def main():
         kern = phase_kernels(dev, card)
         chol_inv.SHAPES.clear()
         phase_probe(dev)
-        launches = {"flagship": phase_flagship(dev, card),
+        flagship_launches, U_flagship = phase_flagship(dev, card)
+        launches = {"flagship": flagship_launches,
                     "podscale": phase_podscale(dev, card),
                     "unbounded": phase_unbounded(dev, card),
                     "state_box": phase_state_box(dev, card)}
         phase_launched_shapes(dev)
+        phase_riccati_agrees(dev, card)
+        phase_riccati_flagship(dev, card, U_flagship)
+        phase_long_horizon(dev, card)
+        phase_riccati_podscale(dev, card)
     # the state-box phase launches K2 twice per IPM iteration, once at each shape
     kern["inv_cholesky"]["other_shapes"][0]["launches"] = \
         launches["state_box"]["inv_cholesky"] // 2

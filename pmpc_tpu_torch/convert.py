@@ -29,8 +29,15 @@ def scp_data_from_numpy(d, device, dtype) -> SCPData:
 
 
 def warm_from_numpy(warm, device, dtype):
-    """The IPM warm tuple (uc, uf, s, lam) -> tensors (s and lam carry the
-    state rows when the solver has state boxes); None passes through."""
-    if warm is None:
-        return None
-    return tuple(_t(a, device, dtype) for a in warm)
+    """An IPM warm tuple -> tensors; None passes through. The condensed IPM's
+    is (uc, uf, s, lam), s and lam ``2 nc + 2 M nf`` long (plus
+    ``2 M N xdim`` state rows with state boxes). The Riccati IPM's is (theta,
+    uf, s, lam) in its own layout: theta padded to ``nct = max(Nc udim, 1)``
+    entries (one dead entry without a consensus block), s and lam
+    ``2 nct + 2 M nf (+ 2 M N xdim)`` long. A state from one package's
+    solver starts the other's built with the same method."""
+    if warm is not None and len(warm) != 4:
+        raise NotImplementedError(
+            "a warm tuple with SOC slacks and duals (sq, zq) is not ported "
+            "yet (ROADMAP §1.4, §1.7)")
+    return None if warm is None else tuple(_t(a, device, dtype) for a in warm)

@@ -31,6 +31,57 @@ def rollout(x0, f, fx, fu, X_prev, U_prev, U):
     return torch.stack(xs, dim=-2)
 
 
+def rollout_feedback(x0, f, fx, fu, X_prev, U_prev, L, l):
+    """Roll out affine state feedback ``u_j = l_j + L_j x_{j-1}`` (x_{-1} =
+    x0), L (..., N, udim, xdim), l (..., N, udim). Returns (X, U)."""
+    xlin = _xlin(x0, X_prev)
+    x, xs, us = x0, [], []
+    for j in range(f.shape[-2]):
+        u = l[..., j, :] + (L[..., j, :, :] @ x[..., None])[..., 0]
+        x = f[..., j, :] + (fx[..., j, :, :] @ (x - xlin[..., j, :])[..., None])[..., 0] \
+            + (fu[..., j, :, :] @ (u - U_prev[..., j, :])[..., None])[..., 0]
+        xs.append(x)
+        us.append(u)
+    return torch.stack(xs, dim=-2), torch.stack(us, dim=-2)
+
+
+def rollout_residual(x0, f, fx, fu, X_prev, U_prev, X, U):
+    """``x_j - (f_j + fx_j (x_{j-1} - xlin_{j-1}) + fu_j (u_j - U_prev_j))``
+    for all j: how far (X, U) is from satisfying the linearized dynamics."""
+    mv = lambda A, v: (A @ v[..., None])[..., 0]
+    return X - (f + mv(fx, _xlin(x0, X) - _xlin(x0, X_prev)) + mv(fu, U - U_prev))
+
+
+def dynamics_violation(x0, f, fx, fu, X_prev, U_prev, X, U):
+    """Per-step linearized dynamics violation norms. Returns (total (...,),
+    per-step (..., N))."""
+    viols = torch.linalg.vector_norm(
+        rollout_residual(x0, f, fx, fu, X_prev, U_prev, X, U), dim=-1)
+    return viols.sum(-1), viols
+
+
+def shorten_horizon(N_new: int, *arrays, N: int = None):
+    """Slice problem arrays to a shorter horizon: each keeps its first
+    ``N_new`` entries along the horizon axis, axis -2 for (..., N, d)
+    arrays, axis -3 for (..., N, d, d) matrix stacks. Pass the current
+    horizon ``N`` to disambiguate when a square trailing block could be
+    mistaken for a matrix stack (a (M, N, xdim) vector array with
+    N == xdim). None passes through."""
+    out = []
+    for a in arrays:
+        if a is None:
+            out.append(None)
+            continue
+        matrix = a.ndim >= 3 and a.shape[-1] == a.shape[-2]
+        if N is not None:
+            matrix = matrix and a.shape[-3] == N
+            if not matrix and a.shape[-2] != N:
+                raise ValueError(f"array of shape {tuple(a.shape)} has horizon {N} "
+                                 "on neither axis -2 nor -3")
+        out.append(a[..., :N_new, :, :] if matrix else a[..., :N_new, :])
+    return out
+
+
 def condense(x0, f, fx, fu, X_prev, U_prev) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dense condensed dynamics map ``vec(X) = Ft @ vec(U - U_prev) + ft``.
 

@@ -1,8 +1,10 @@
-"""The headline program, the accuracy-probe configuration and the
-BASELINE.json measurement configs 1, 2, 4 and 5, in torch.
+"""The headline program, the accuracy-probe configuration, the BASELINE.json
+measurement configs 1, 2, 4 and 5 and the long-horizon configuration, in
+torch.
 
 Twins of ``__graft_entry__._flagship``/``_dubins``, ``bench._stack_varied``,
-``benchmarks/accuracy_probe.build`` and ``benchmarks/configs.py``: the same
+``benchmarks/accuracy_probe.build``, ``benchmarks/configs.py`` and
+``benchmarks/long_horizon_bench.py``: the same
 numpy seeds, so both packages build the same instances. Every function here puts
 its data on the card unless the caller names a device (``device=None``
 reaches `utils.default_device` through `make_scp_data`).
@@ -22,6 +24,11 @@ HEADLINE_KW = dict(max_it=25, res_tol=1e-3, accel="AA", ipm_iters=8)
 # on the TPU sat near 2e-3)
 CONFIG_KW = dict(max_it=25, res_tol=1e-3, accel="AA")
 PODSCALE_KW = dict(CONFIG_KW, max_it=40, res_tol=2.5e-3, ipm_iters=12)
+# benchmarks/long_horizon_bench.py: one single-particle problem through the
+# O(N) route, control boxes + state boxes + slew; the tolerance is out of
+# reach on purpose, so a call runs exactly ``max_it`` SCP iterations
+LONG_HORIZON_KW = dict(res_tol=1e-9, has_u_bounds=True, has_x_bounds=True,
+                       has_slew=True, method="riccati", ipm_iters=8)
 
 
 def dubins(x, u, p=(1.0, 1.0, 0.3)):
@@ -84,7 +91,8 @@ def _x0_seed0(M, xdim, dtype):
 def flagship(M=32, N=30, xdim=4, udim=2, Nc=5, max_it=8, dtype=torch.float32,
              res_tol=1e-5, ipm_iters=15, device=None, **build_kw):
     """(solver, data): the headline Dubins-car problem, data (M, ...);
-    batch it with `stack_varied`."""
+    batch it with `stack_varied`. ``method="riccati"`` (as any other option
+    of `build_scp_solver`) sends the same instance through the O(N) route."""
     solver = build_scp_solver(
         dubins, N=N, xdim=xdim, udim=udim, M=M, Nc=Nc, max_it=max_it,
         res_tol=res_tol, has_u_bounds=True, ipm_iters=ipm_iters, **build_kw)
@@ -108,7 +116,8 @@ def podscale(dtype=torch.float32, device=None, bounded=True, M=64, **build_kw):
     (``benchmarks/configs.py``: M=64, N=50, Nc=5, box controls, x0 = ones;
     nf = 90). Batch it with ``stack_varied(data, B, scale=0.02)``.
     ``bounded=False`` drops the control box: the subproblem is then the
-    unconstrained solve at the same shape."""
+    unconstrained solve at the same shape. ``method="riccati"`` sends the
+    same instance through the O(N) route."""
     N, xdim, udim = 50, 4, 2
     kw = dict(PODSCALE_KW, **build_kw)
     if not bounded:
@@ -117,6 +126,27 @@ def podscale(dtype=torch.float32, device=None, bounded=True, M=64, **build_kw):
                               has_u_bounds=bounded, **kw)
     x0 = np.ones((M, xdim), _np_dtype(dtype))
     return solver, _instance(x0, N, udim, dtype, device, bounded=bounded)
+
+
+def long_horizon(N, dtype=torch.float32, device=None, max_it=4, **build_kw):
+    """(solver, data (M=1, ...)): the long-horizon configuration of
+    ``benchmarks/long_horizon_bench.py`` (N = 140 and 280 there): one
+    Dubins car, x0 = ones, box controls +-1, state boxes +-6, slew
+    regularization 0.1, through ``method="riccati"`` (`LONG_HORIZON_KW`).
+    The bench times ``max_it=4`` and ``max_it=12`` and reports
+    (t12 - t4) / 8 as the time of one SCP iteration."""
+    xdim, udim, M = 4, 2, 1
+    nd = _np_dtype(dtype)
+    solver = build_scp_solver(dubins, N=N, xdim=xdim, udim=udim, M=M, Nc=0,
+                              max_it=max_it, **dict(LONG_HORIZON_KW, **build_kw))
+    data = make_scp_data(
+        np.ones((M, xdim), nd), np.tile(np.eye(xdim, dtype=nd), (M, N, 1, 1)),
+        np.tile((1e-2 * np.eye(udim)).astype(nd), (M, N, 1, 1)),
+        reg_x=1.0, reg_u=0.1, slew_reg=0.1,
+        u_l=-np.ones((M, N, udim), nd), u_u=np.ones((M, N, udim), nd),
+        x_l=-np.full((M, N, xdim), 6.0, nd), x_u=np.full((M, N, xdim), 6.0, nd),
+        dtype=dtype, device=device)
+    return solver, data
 
 
 def obstacle_lin_cost(X_prev, U_prev, data):

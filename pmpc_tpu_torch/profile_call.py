@@ -1,13 +1,16 @@
 """Where one batched solver call spends its time on the card.
 
-    python3 -m pmpc_tpu_torch.profile_call flagship|podscale|podscale64|podscale64_1e-3|unbounded
+    python3 -m pmpc_tpu_torch.profile_call flagship|podscale|podscale64|podscale64_1e-3|unbounded|riccati_flagship|long140|long280
 
 Builds the named configuration as `chip_smoke.py` does, runs one warm-up call
 and one timed call, then one call under ``torch.profiler`` and prints: the
 wall time of the timed call, the device's busy share (the profiled call's sum
 of kernel time over the unprofiled call's wall time: the profiler slows the
 host, not the kernels), the number of kernels, and the kernels that take most
-device time. Needs a CUDA device.
+device time. For the Riccati configurations it also prints the batched IPM
+iterations of the call (read from a further call built with
+``collect_stats=True``: per SCP iteration the slowest lane's count) and the
+kernels per IPM iteration and horizon stage. Needs a CUDA device.
 """
 
 import sys
@@ -15,22 +18,31 @@ import time
 
 import torch
 
-from .flagship import HEADLINE_KW, flagship, podscale, stack_varied
+from .flagship import HEADLINE_KW, flagship, long_horizon, podscale, stack_varied
 from .utils import default_device
 
+# name -> (build(**options) -> (solver, data), batch, x0 spread, horizon of a
+#          Riccati configuration or None)
 CONFIGS = {
-    "flagship": lambda: (flagship(dtype=torch.float32, **HEADLINE_KW), 64, 0.05),
-    "podscale": lambda: (podscale(torch.float32), 32, 0.02),
-    "podscale64": lambda: (podscale(torch.float64), 32, 0.02),
+    "flagship": (lambda **kw: flagship(dtype=torch.float32, **HEADLINE_KW, **kw), 64, 0.05, None),
+    "podscale": (lambda **kw: podscale(torch.float32, **kw), 32, 0.02, None),
+    "podscale64": (lambda **kw: podscale(torch.float64, **kw), 32, 0.02, None),
     # config 5 held to the flagship's bar instead of its own 2.5e-3
-    "podscale64_1e-3": lambda: (podscale(torch.float64, res_tol=1e-3), 32, 0.02),
-    "unbounded": lambda: (podscale(torch.float32, bounded=False), 32, 0.02),
+    "podscale64_1e-3": (lambda **kw: podscale(torch.float64, res_tol=1e-3, **kw), 32, 0.02, None),
+    "unbounded": (lambda **kw: podscale(torch.float32, bounded=False, **kw), 32, 0.02, None),
+    # the O(N) route: the headline program, and the long-horizon configuration
+    # as its bench runs it (one unvaried problem, 4 SCP iterations)
+    "riccati_flagship": (lambda **kw: flagship(dtype=torch.float32, method="riccati",
+                                               **HEADLINE_KW, **kw), 64, 0.05, 30),
+    "long140": (lambda **kw: long_horizon(140, **kw), 1, 0.0, 140),
+    "long280": (lambda **kw: long_horizon(280, **kw), 1, 0.0, 280),
 }
 
 
 def main(name: str) -> None:
     default_device()  # raises without a card
-    (solver, data), B, scale = CONFIGS[name]()
+    build, B, scale, N = CONFIGS[name]
+    solver, data = build()
     stack = stack_varied(data, B, scale=scale)
 
     def call():
@@ -58,6 +70,16 @@ def main(name: str) -> None:
           f"device busy {100 * dev_us / (wall * 1e6):.1f}% of the unprofiled call")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d} x  {e.key[:90]}")
+    if N is not None:
+        # every lane runs each batched IPM loop to the slowest lane's count,
+        # for as many SCP iterations as the call's slowest lane took
+        scp_its = int(info["iters"].max())
+        ipm_its = build(collect_stats=True)[0](stack)[2]["scan_stats"]["ipm_iters"]
+        n_ipm = int(ipm_its.amax(0)[:scp_its].sum())
+        n_kern = sum(e.count for e in events)
+        print(f"{scp_its} SCP iterations, {n_ipm} batched IPM iterations: "
+              f"{n_kern / scp_its:.0f} kernels an SCP iteration, {n_kern / n_ipm:.0f} an "
+              f"IPM iteration, {n_kern / n_ipm / N:.1f} an IPM iteration and stage (N={N})")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,11 @@
-"""The SCP loop: linearize -> condensed assembly -> box IPM (or the
-unconstrained solve) -> recover -> Anderson acceleration -> early exit, over
-a batch of scenarios.
+"""The SCP loop: linearize -> subproblem solve -> Anderson acceleration ->
+early exit, over a batch of scenarios. The subproblem goes one of two ways:
+``method="condensed"`` (condensed assembly -> box IPM or the unconstrained
+solve -> recover) or ``method="riccati"`` (the O(N) stage sweeps of
+`solvers.riccati` / `solvers.riccati_ipm`, which never build the O(N^2)
+condensed map and carry slew coupling by state augmentation).
 
-Twin of ``pmpc_tpu/jax_scp.py`` for ``method="condensed"`` with control and
+Twin of ``pmpc_tpu/jax_scp.py`` for these two methods with control and
 state boxes. The JAX solver takes one (M, ...) problem and is batched with
 ``jax.vmap``; this solver takes the batch itself, (B, M, ...) arrays, and
 every per-scenario quantity (iteration count, residual, done flag, AA
@@ -23,6 +26,8 @@ import torch
 from .dynamics import linearize
 from .solvers.ipm import BoxBounds, ipm_core
 from .solvers.reduced import assemble_condensed, recover_XU, solve_eq
+from .solvers.riccati import riccati_consensus_solve
+from .solvers.riccati_ipm import riccati_ipm_solve_scp
 from .utils import default_device, lane_where, matmul_precision_scope
 
 
@@ -126,12 +131,14 @@ def build_scp_solver(
     ipm_tau: Optional[float] = None,
     has_u_soc: bool = False,
     method: str = "condensed",
+    has_slew: bool = False,
     return_state: bool = False,
     accel: str = "",
     accel_window: int = 5,
     accel_it0: int = 2,
     accel_wmax: float = 50.0,
     relin_stale: int = 0,
+    riccati_unroll: Optional[int] = None,
 ) -> Callable:
     """Build the batched SCP solver for fixed problem dimensions.
 
@@ -147,6 +154,15 @@ def build_scp_solver(
     ``collect_stats=True`` runs all ``max_it`` iterations (no early exit)
     and adds ``info["scan_stats"]``: ipm_iters, resid and, with bounds,
     ipm_failed, ipm_converged, accepted, each (B, max_it).
+    ``method="riccati"`` solves every subproblem by O(N) stage sweeps instead
+    of the condensed arrow system (the route for long horizons). Slew terms
+    in the data reach it only behind the static ``has_slew`` flag (the
+    augmented sweep costs (xdim + 2 udim)^3 per stage, so it is opt-in);
+    with the flag off and slew terms present the result is poisoned with NaN
+    (the iterate freezes and the lane reports not converged) rather than
+    silently wrong. The condensed method always carries the slew terms and
+    ignores the flag. ``riccati_unroll`` is taken for signature parity and
+    has no effect (it tunes the JAX package's scans).
     ``accel="AA"`` is Type-II Anderson acceleration of the SCP fixed point:
     the next linearization point combines the last ``accel_window``
     subproblem solutions; the RETURNED solution is always the last accepted
@@ -156,10 +172,23 @@ def build_scp_solver(
     info)`` with ``info`` keys iters, resid, converged, resid_particle (and
     solver_state with ``return_state``), each with a leading B axis.
     """
-    if method != "condensed":
-        _unsupported(f"method={method!r}", "ROADMAP §1.7")
+    if method not in ("condensed", "riccati", "priccati"):
+        raise ValueError(f"unknown method {method!r}")
+    if method == "priccati":
+        _unsupported("method='priccati' (the sweeps as associative scans)",
+                     "ROADMAP §1.11: to be decided by measurement on the card")
     if has_u_soc:
         _unsupported("SOC cones", "ROADMAP §1.4")
+    if relin_stale and method != "condensed":
+        raise ValueError(
+            "relin_stale (stale-Jacobian sub-iterations) is only supported "
+            "with method='condensed'")
+    if not ipm_predictor and method != "condensed":
+        # the riccati stage-structured IPM always runs Mehrotra: silently
+        # ignoring the flag would misreport the A/B being requested
+        raise ValueError(
+            "ipm_predictor=False is only supported with method='condensed' "
+            "(the riccati IPM has no single-solve mode)")
     if relin_stale:
         _unsupported("relin_stale", "ROADMAP §1.11")
     if ipm_gondzio or not ipm_predictor or mu_target > 0:
@@ -173,6 +202,7 @@ def build_scp_solver(
     has_bounds = has_u_bounds or has_x_bounds
     AW = int(accel_window)
     nc, nx = Nc * udim, M * N * xdim
+    riccati = method == "riccati"
     # `jax_scp.hot_matmul_precision` needs no twin: every core here already
     # runs IEEE f32 matmuls with TF32 off (`matmul_precision_scope`)
 
@@ -209,37 +239,71 @@ def build_scp_solver(
                 X_ref = X_ref - torch.linalg.solve(data.Q, cx[..., None])[..., 0]
             if cu is not None:
                 U_ref = U_ref - torch.linalg.solve(data.R, cu[..., None])[..., 0]
-        cqp = assemble_condensed(
-            data.x0, f, fx, fu, X_prev, U_prev, data.Q, data.R,
-            X_ref, U_ref, data.reg_x, data.reg_u, data.slew_reg,
-            data.slew_reg0, data.slew_um1, Nc=Nc)
-        dt = cqp.qf.dtype
+        dt = data.Q.dtype
+        f64 = dt == torch.float64
         stats = None
+        ipm_kw = {}
         if has_bounds:
-            ul = data.u_l.reshape(B, M, N * udim)
-            uu = data.u_u.reshape(B, M, N * udim)
-            bounds = BoxBounds(lo_c=ul[:, 0, :nc], hi_c=uu[:, 0, :nc],
-                               lo_f=ul[:, :, nc:], hi_f=uu[:, :, nc:],
-                               lo_x=data.x_l.reshape(B, M, N * xdim),
-                               hi_x=data.x_u.reshape(B, M, N * xdim))
-            f64 = dt == torch.float64
             # inexact-Newton forcing: early SCP iterations only need a loose
             # subproblem solve; the tolerance tightens with the SCP residual
             tol_dyn = None
             if adaptive_tol:
                 r = torch.clamp(resid, max=1e3)  # resid starts at +inf
                 tol_dyn = torch.clamp(1e-3 * r * r, 0.0, adaptive_cap).to(dt)
-            uc, uf, stats = ipm_core(
-                cqp, bounds, has_u=has_u_bounds, has_x=has_x_bounds,
+            ipm_kw = dict(
                 iters=ipm_iters,
                 tol_exp=ipm_tol_exp if ipm_tol_exp is not None else (-8 if f64 else -6),
                 kappa=kappa if kappa is not None else (0.0 if f64 else 1e-7),
                 warm=warm, tol_dynamic=tol_dyn, tau=ipm_tau)
-            warm_new = (uc, uf, stats["s"], stats["lam"]) if warm_start else warm
+        if riccati:
+            # O(N) stage-structured solve: no O(N^2) Ft, the consensus Schur
+            # complement is a per-particle theta-quadratic sum
+            slew_kw, poison = {}, None
+            if has_slew:
+                slew_kw = dict(slew_reg=data.slew_reg, slew_reg0=data.slew_reg0,
+                               slew_um1=data.slew_um1)
+            else:
+                # a silent drop of slew terms would return wrong solutions:
+                # poison the lane instead (the NaN contract freezes the
+                # iterate and reports not-converged)
+                slew_present = (data.slew_reg.amax(-1) > 0) | (data.slew_reg0.amax(-1) > 0)
+                poison = torch.where(slew_present, torch.nan, 1.0).to(dt)[:, None, None, None]
+            if has_bounds:
+                xbox_kw = dict(x_l=data.x_l, x_u=data.x_u) if has_x_bounds else {}
+                u_l = data.u_l if has_u_bounds else torch.full_like(data.u_l, -torch.inf)
+                u_u = data.u_u if has_u_bounds else torch.full_like(data.u_u, torch.inf)
+                X, U, stats = riccati_ipm_solve_scp(
+                    data.x0, f, fx, fu, X_prev, U_prev, data.Q, data.R, X_ref, U_ref,
+                    data.reg_x, data.reg_u, u_l, u_u, Nc=Nc, **ipm_kw, **slew_kw,
+                    **xbox_kw)
+                warm_new = (stats["theta"], stats["uf"], stats["s"], stats["lam"]) \
+                    if warm_start else warm
+            else:
+                X, U = riccati_consensus_solve(
+                    data.x0, f, fx, fu, X_prev, U_prev, data.Q, data.R, X_ref, U_ref,
+                    data.reg_x, data.reg_u, Nc=Nc, **slew_kw)
+                warm_new = warm
+            if poison is not None:
+                X, U = X * poison, U * poison
         else:
-            uc, uf = solve_eq(cqp)
-            warm_new = warm
-        X, U = recover_XU(cqp, uc, uf, N=N)
+            cqp = assemble_condensed(
+                data.x0, f, fx, fu, X_prev, U_prev, data.Q, data.R,
+                X_ref, U_ref, data.reg_x, data.reg_u, data.slew_reg,
+                data.slew_reg0, data.slew_um1, Nc=Nc)
+            if has_bounds:
+                ul = data.u_l.reshape(B, M, N * udim)
+                uu = data.u_u.reshape(B, M, N * udim)
+                bounds = BoxBounds(lo_c=ul[:, 0, :nc], hi_c=uu[:, 0, :nc],
+                                   lo_f=ul[:, :, nc:], hi_f=uu[:, :, nc:],
+                                   lo_x=data.x_l.reshape(B, M, N * xdim),
+                                   hi_x=data.x_u.reshape(B, M, N * xdim))
+                uc, uf, stats = ipm_core(cqp, bounds, has_u=has_u_bounds,
+                                         has_x=has_x_bounds, **ipm_kw)
+                warm_new = (uc, uf, stats["s"], stats["lam"]) if warm_start else warm
+            else:
+                uc, uf = solve_eq(cqp)
+                warm_new = warm
+            X, U = recover_XU(cqp, uc, uf, N=N)
 
         dX, dU = X - X_prev, U - U_prev
         # per-particle residuals (B, M); the scenario's residual is their max
@@ -299,11 +363,15 @@ def build_scp_solver(
                 # U_prev, slacks/multipliers at the cold-start heuristics
                 # (state rows exist in the flat layout only with state boxes)
                 nf = (N - Nc) * udim
-                mtot = 2 * nc + 2 * M * nf \
+                # the stage-structured IPM pads theta to at least one entry
+                nct = max(nc, 1) if riccati else nc
+                mtot = 2 * nct + 2 * M * nf \
                     + (2 * M * N * xdim if has_x_bounds else 0)
                 Uflat = data.U_prev.reshape(B, M, -1)
                 s_w = torch.ones((B, mtot), dtype=dt, device=dev)
-                warm0 = (Uflat[:, :, :nc].mean(1), Uflat[:, :, nc:], s_w, s_w)
+                uc_w = torch.zeros((B, nct), dtype=dt, device=dev)
+                uc_w[:, :nc] = Uflat[:, :, :nc].mean(1)
+                warm0 = (uc_w, Uflat[:, :, nc:], s_w, s_w)
         acc0 = None
         if accel:
             n_flat = M * N * (xdim + udim)

@@ -9,6 +9,7 @@ off in both cuBLAS and cuDNN. Any TF32 use needs its own accuracy A/B.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -29,6 +30,17 @@ def matmul_precision_scope():
         torch.backends.cuda.matmul.allow_tf32 = prev[0]
         torch.backends.cudnn.allow_tf32 = prev[1]
         torch.set_float32_matmul_precision(prev[2])
+
+
+def full_matmul_precision(fn):
+    """Run ``fn`` inside `matmul_precision_scope`: the twin of the JAX
+    package's ``with_matmul_precision`` decorator on a solver core."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with matmul_precision_scope():
+            return fn(*args, **kwargs)
+
+    return wrapped
 
 
 def lane_where(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

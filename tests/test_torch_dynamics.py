@@ -91,3 +91,45 @@ def test_rollout_matches_jax_and_condense():
     Ft, ft = tdyn.condense(**{k: _t(v) for k, v in p.items()})
     x = Ft @ (_t(U) - _t(p["U_prev"])).reshape(-1) + ft
     _close(x.reshape(X.shape), X_ref)
+
+
+def test_feedback_rollout_residual_and_violation_match_vmapped_jax():
+    rng = np.random.default_rng(8)
+    lead = (2, 3)
+    p = _linear_problem(rng, lead)
+    keys = ("x0", "f", "fx", "fu", "X_prev", "U_prev")
+    L, l = 0.3 * rng.normal(size=lead + (7, 2, 4)), rng.normal(size=lead + (7, 2))
+    vm = lambda fn: jax.vmap(jax.vmap(fn))
+    jargs = [jnp.asarray(p[k]) for k in keys]
+    Xr, Ur = vm(jdyn.rollout_feedback)(*jargs, jnp.asarray(L), jnp.asarray(l))
+    X, U = tdyn.rollout_feedback(*(_t(p[k]) for k in keys), _t(L), _t(l))
+    _close(X, Xr), _close(U, Ur)
+    # a trajectory that satisfies the dynamics has no residual; a perturbed one
+    # has the JAX package's
+    res = tdyn.rollout_residual(*(_t(p[k]) for k in keys), X, U)
+    assert res.abs().max() < 1e-12
+    Xp, Up = np.asarray(Xr) + 0.1 * rng.normal(size=Xr.shape), np.asarray(Ur) + 0.1
+    _close(tdyn.rollout_residual(*(_t(p[k]) for k in keys), _t(Xp), _t(Up)),
+           vm(jdyn.rollout_residual)(*jargs, jnp.asarray(Xp), jnp.asarray(Up)))
+    tot, viols = tdyn.dynamics_violation(*(_t(p[k]) for k in keys), _t(Xp), _t(Up))
+    tot_r, viols_r = vm(jdyn.dynamics_violation)(*jargs, jnp.asarray(Xp), jnp.asarray(Up))
+    _close(tot, tot_r), _close(viols, viols_r)
+    assert tot.shape == lead and viols.shape == lead + (7,)
+
+
+def test_shorten_horizon_slices_like_jax():
+    rng = np.random.default_rng(9)
+    arrays = [rng.normal(size=(3, 6, 4)), rng.normal(size=(3, 6, 4, 4)),
+              rng.normal(size=(3, 6, 4, 2)), None, rng.normal(size=(3, 4, 4))]
+    out = tdyn.shorten_horizon(2, *(None if a is None else _t(a) for a in arrays))
+    ref = jdyn.shorten_horizon(2, *(None if a is None else jnp.asarray(a) for a in arrays))
+    for a, b in zip(out, ref):
+        assert (a is None and b is None) or np.array_equal(a.numpy(), np.asarray(b))
+    # a (M, N, xdim) array with N == xdim is a vector array once N is given
+    assert tdyn.shorten_horizon(2, _t(arrays[4]), N=4)[0].shape == (3, 2, 4)
+    assert tdyn.shorten_horizon(2, _t(arrays[4]))[0].shape == (2, 4, 4)
+    try:
+        tdyn.shorten_horizon(2, _t(arrays[0]), N=5)
+        raise AssertionError("a wrong horizon was not refused")
+    except ValueError as e:
+        assert "horizon 5" in str(e)

@@ -13,7 +13,14 @@ cut in depth only (M=4, so nf = 90 stays);
 (f) the default device is the card: an entry point that is not told
 `device="cpu"` raises where there is none;
 (g) f32 at the pod-scale horizon: the port's residual trajectory against the
-JAX solver's in f32 (same start, same stall above 1e-3, a floor no higher).
+JAX solver's in f32 (same start, same stall above 1e-3, a floor no higher);
+(h) `method="riccati"` against `jax.vmap` of the JAX solver built with the
+same method, f64, U and X to 1e-9 with equal SCP and IPM iteration counts:
+unbounded, control boxes, state boxes, slew (and the NaN poison without
+`has_slew`), Anderson acceleration, `return_state` round trip,
+`collect_stats`, the long-horizon configuration cut in depth (M = 1,
+Nc = 0); and inside the port the Riccati route against the condensed one to
+1e-8 with equal IPM iteration counts.
 """
 
 import ast
@@ -35,7 +42,8 @@ from pmpc_tpu import jax_scp
 from pmpc_tpu_torch import torch_scp, utils
 from pmpc_tpu_torch.convert import scp_data_from_numpy, warm_from_numpy
 from pmpc_tpu_torch.flagship import (CONFIG_KW, PODSCALE_KW, baseline_config,
-                                     dubins, flagship, podscale, probe,
+                                     dubins, flagship, long_horizon,
+                                     obstacle_lin_cost, podscale, probe,
                                      stack_varied)
 
 torch.set_num_threads(1)
@@ -91,7 +99,7 @@ def test_state_round_trip_and_unported_options():
     assert torch.isfinite(U2).all()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solver.init_carry(data)
-    for kw in (dict(method="riccati"), dict(has_u_soc=True), dict(relin_stale=1),
+    for kw in (dict(method="priccati"), dict(has_u_soc=True), dict(relin_stale=1),
                dict(ipm_gondzio=1), dict(ipm_predictor=False), dict(mu_target=0.1)):
         args = dict(N=6, xdim=4, udim=2, M=2, has_u_bounds=True)
         args.update(kw)
@@ -326,6 +334,173 @@ def test_podscale_shape_f32_floor_is_the_reference_s(bounded):
             <= 1.25 * np.median(r_jax[:, -15:], axis=1)).all()
 
 
+RIC_DIMS = dict(N=10, xdim=4, udim=2, M=3, Nc=2)
+RIC_BOX = dict(u_l=-0.6 * np.ones((3, 10, 2)), u_u=0.6 * np.ones((3, 10, 2)))
+RIC_SLEW = dict(slew_reg=0.3, slew_reg0=0.5, slew_um1=0.1 * np.ones((3, 2)))
+# case -> (build_scp_solver options, data options)
+RIC_CASES = {
+    "unbounded": (dict(max_it=40, res_tol=1e-4), {}),
+    "bounded": (dict(max_it=6, res_tol=1e-7, has_u_bounds=True, ipm_iters=30,
+                     collect_stats=True), RIC_BOX),
+    "bounded_early_exit": (dict(max_it=40, res_tol=1e-3, has_u_bounds=True,
+                                ipm_iters=12), RIC_BOX),
+    "aa": (dict(max_it=25, res_tol=1e-3, has_u_bounds=True, ipm_iters=8, accel="AA"),
+           RIC_BOX),
+    "slew": (dict(max_it=6, res_tol=1e-7, has_u_bounds=True, ipm_iters=30,
+                  has_slew=True, collect_stats=True), dict(RIC_BOX, **RIC_SLEW)),
+    "slew_unbounded": (dict(max_it=40, res_tol=1e-4, has_slew=True), RIC_SLEW),
+}
+
+
+@pytest.mark.parametrize("case", list(RIC_CASES))
+def test_riccati_method_matches_vmapped_jax(case):
+    build_kw, data_kw = RIC_CASES[case]
+    kw = dict(RIC_DIMS, method="riccati", **build_kw)
+    j_solver = jax_scp.build_scp_solver(unicycle_step, **kw)
+    t_solver = torch_scp.build_scp_solver(dubins, **kw)
+    j_stack = _jax_stack(_jax_config_data(3, 10, 0.05, **data_kw), 2, scale=0.05)
+    info, info_r = _hold_against_jax(j_solver, j_stack, t_solver)
+    if "collect_stats" in build_kw:  # equal IPM iteration counts, step by step
+        ys, ys_r = info["scan_stats"], info_r["scan_stats"]
+        assert set(ys) == set(ys_r)
+        for key in ("ipm_iters", "ipm_failed", "ipm_converged", "accepted"):
+            np.testing.assert_array_equal(ys[key].numpy(), np.asarray(ys_r[key]))
+        assert ys["ipm_converged"].all() and (ys["ipm_iters"] > 0).all()
+    else:
+        assert info["converged"].all()
+        assert (info["iters"] < build_kw["max_it"]).all()  # the early exit
+
+
+def test_riccati_state_boxes_and_state_round_trip_match_vmapped_jax():
+    """State boxes beside control boxes through the Riccati route; the warm
+    tuple (padded theta, state rows) comes back with `return_state`, has the
+    JAX solver's layout and crosses from the JAX solver into the port's."""
+    d, kw = _xbox_instance()
+    x_u = jnp.broadcast_to(jnp.asarray([2.0, 2.0, 1.0, np.inf]), d.x_u.shape)
+    x_l = jnp.broadcast_to(jnp.asarray([-2.0, -2.0, -0.2, -np.inf]), d.x_l.shape)
+    d = d._replace(u_l=-jnp.ones_like(d.u_l), u_u=jnp.ones_like(d.u_u), x_l=x_l, x_u=x_u)
+    kw.update(has_u_bounds=True, has_x_bounds=True, return_state=True, method="riccati")
+    j_solver = jax_scp.build_scp_solver(unicycle_step, **kw)
+    t_solver = torch_scp.build_scp_solver(dubins, **kw)
+    j_stack = _jax_stack(d._replace(x0=d.x0 - 0.05), 2, scale=0.01)
+    info, info_r = _hold_against_jax(j_solver, j_stack, t_solver)
+    for a, b in zip(info["solver_state"], info_r["solver_state"]):
+        assert a.shape == np.asarray(b).shape
+    assert info["solver_state"][2].shape == (2, 2 * 4 + 2 * 2 * 12 + 2 * 2 * 8 * 4)
+    t_data = scp_data_from_numpy(j_stack, "cpu", torch.float64)
+    X, U, _ = t_solver(t_data)
+    assert abs(X[:, :, 1:, 2].min().item() + 0.2) < 1e-4  # the speed's floor binds
+    _, Ur2, info_r2 = jax.vmap(j_solver)(j_stack, info_r["solver_state"])
+    _, U2, info2 = t_solver(t_data, warm_from_numpy(
+        info_r["solver_state"], "cpu", torch.float64))
+    assert np.max(np.abs(U2.numpy() - np.asarray(Ur2))) < 1e-9
+    np.testing.assert_array_equal(info2["iters"].numpy(), np.asarray(info_r2["iters"]))
+    # without consensus the padded theta has one dead entry
+    solver1 = torch_scp.build_scp_solver(dubins, N=6, xdim=4, udim=2, M=1, max_it=2,
+                                         has_u_bounds=True, method="riccati",
+                                         return_state=True)
+    _, one = flagship(M=1, N=6, dtype=torch.float64, device="cpu")
+    th, uf, s_w, _ = solver1(stack_varied(one, 2))[2]["solver_state"]
+    assert th.shape == (2, 1) and uf.shape == (2, 1, 12) and s_w.shape == (2, 2 + 24)
+
+
+@pytest.mark.parametrize("option", ["params", "lin_cost_fn", "no_u_bounds"])
+def test_riccati_method_takes_the_solver_options_unchanged(option):
+    """Per-particle dynamics `params`, `lin_cost_fn` (config 4's obstacle
+    cost) and state boxes with the control bounds ignored (+-inf inside the
+    IPM) through `method="riccati"`, against `jax.vmap` of the JAX solver."""
+    M, N = 3, 10
+    kw = dict(RIC_DIMS, method="riccati", max_it=6, res_tol=1e-7)
+    j_dyn, t_dyn, data_kw = unicycle_step, dubins, dict(RIC_BOX)
+    if option == "params":
+        kw.update(has_u_bounds=True, ipm_iters=30)
+        data_kw["params"] = jnp.asarray(np.stack([[1.0 + 0.2 * i, 1.0, 0.3] for i in range(M)]))
+        j_dyn = lambda x, u, p: unicycle_step(x, u, (p[0], p[1], p[2]))
+        t_dyn = lambda x, u, p: dubins(x, u, (p[0], p[1], p[2]))
+    elif option == "lin_cost_fn":
+        kw.update(has_u_bounds=True, ipm_iters=30)
+    else:  # the finite control bounds in the data must be ignored
+        kw.update(has_x_bounds=True, ipm_iters=30)
+        data_kw.update(u_l=-1e-3 * np.ones((M, N, 2)), u_u=1e-3 * np.ones((M, N, 2)),
+                       x_l=-1.3 * np.ones((M, N, 4)), x_u=1.3 * np.ones((M, N, 4)))
+    j_kw = dict(kw, lin_cost_fn=_obstacle_cost_jax) if option == "lin_cost_fn" else kw
+    t_kw = dict(kw, lin_cost_fn=obstacle_lin_cost) if option == "lin_cost_fn" else kw
+    j_stack = _jax_stack(_jax_config_data(M, N, 0.05, **data_kw), 2, scale=0.05)
+    info, _ = _hold_against_jax(jax_scp.build_scp_solver(j_dyn, **j_kw), j_stack,
+                                torch_scp.build_scp_solver(t_dyn, **t_kw))
+    assert (info["iters"] == 6).all() and torch.isfinite(info["resid"]).all()
+
+
+def test_riccati_without_has_slew_poisons_lanes_that_carry_slew_terms():
+    """Lane 1 carries slew terms and the solver was built without
+    `has_slew`: its result is NaN-poisoned, so the lane freezes on its start
+    and reports not converged; lane 0 is solved. The JAX solver does the
+    same."""
+    kw = dict(RIC_DIMS, method="riccati", max_it=40, res_tol=1e-4)
+    j_stack = _jax_stack(_jax_config_data(3, 10, 0.05), 2, scale=0.05)
+    j_stack = j_stack._replace(slew_reg=j_stack.slew_reg.at[1].set(0.3))
+    info, info_r = _hold_against_jax(jax_scp.build_scp_solver(unicycle_step, **kw),
+                                     j_stack, torch_scp.build_scp_solver(dubins, **kw))
+    assert info["converged"].tolist() == [True, False]
+    assert torch.isinf(info["resid"][1])
+
+
+def test_riccati_route_matches_condensed_route_in_the_port():
+    """Both routes run identical Mehrotra steps, only the Newton solver
+    differs: same solution to 1e-8, same warm-started IPM iteration counts
+    (twin of tests/test_riccati_ipm.py::test_fused_riccati_scp_matches_condensed)."""
+    kw = dict(N=14, Nc=3, M=3, max_it=8, res_tol=1e-7, ipm_iters=40, ipm_tol_exp=-10,
+              collect_stats=True, adaptive_tol=False, dtype=torch.float64, device="cpu")
+    out = {}
+    for method in ("condensed", "riccati"):
+        solver, data = flagship(method=method, **kw)
+        data = data._replace(u_l=0.6 * data.u_l, u_u=0.6 * data.u_u)
+        out[method] = solver(stack_varied(data, 2))
+    (Xc, Uc, ic), (Xr, Ur, ir) = out["condensed"], out["riccati"]
+    assert (Ur - Uc).abs().max() < 1e-8 and (Xr - Xc).abs().max() < 1e-8
+    its = ir["scan_stats"]["ipm_iters"]
+    assert torch.equal(its, ic["scan_stats"]["ipm_iters"])
+    assert (its[:, -1] < its[:, 0]).all()  # the warm start cuts the count
+    assert Ur.abs().max() <= 0.6 + 1e-8
+    assert (Ur[:, :, :3] - Ur[:, :1, :3]).abs().max() < 1e-10  # exact consensus
+
+
+def test_long_horizon_config_matches_vmapped_jax():
+    """`benchmarks/long_horizon_bench.py`'s configuration cut in depth only
+    (N = 40 of 140 / 280): M = 1, Nc = 0, control boxes, state boxes, slew."""
+    N, f64 = 40, np.float64
+    j_solver = jax_scp.build_scp_solver(
+        _dubins, N=N, xdim=4, udim=2, M=1, Nc=0, max_it=4, res_tol=1e-9,
+        has_u_bounds=True, has_x_bounds=True, has_slew=True, method="riccati",
+        ipm_iters=8)
+    j_data = jax_scp.make_scp_data(
+        np.ones((1, 4), f64), np.tile(np.eye(4, dtype=f64), (1, N, 1, 1)),
+        np.tile((1e-2 * np.eye(2)).astype(f64), (1, N, 1, 1)),
+        reg_x=1.0, reg_u=0.1, slew_reg=0.1,
+        u_l=-np.ones((1, N, 2), f64), u_u=np.ones((1, N, 2), f64),
+        x_l=-np.full((1, N, 4), 6.0, f64), x_u=np.full((1, N, 4), 6.0, f64))
+    t_solver, t_one = long_horizon(N, torch.float64, "cpu")
+    info, _ = _hold_against_jax(j_solver, bench._stack_varied(j_data, 2), t_solver,
+                                stack_varied(t_one, 2))
+    assert (info["iters"] == 4).all()
+
+
+def test_riccati_gates():
+    args = dict(N=6, xdim=4, udim=2, M=2, has_u_bounds=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP §1.11"):
+        torch_scp.build_scp_solver(dubins, method="priccati", **args)
+    for kw in (dict(has_u_soc=True), dict(mu_target=0.1), dict(ipm_gondzio=1)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            torch_scp.build_scp_solver(dubins, method="riccati", **args, **kw)
+    for kw in (dict(relin_stale=1), dict(ipm_predictor=False)):
+        with pytest.raises(ValueError, match="only supported with method='condensed'"):
+            torch_scp.build_scp_solver(dubins, method="riccati", **args, **kw)
+    with pytest.raises(ValueError, match="unknown method"):
+        torch_scp.build_scp_solver(dubins, method="sparse", **args)
+    # `riccati_unroll` is taken and has no effect
+    torch_scp.build_scp_solver(dubins, method="riccati", riccati_unroll=8, **args)
+
+
 def test_default_device_is_the_card(monkeypatch):
     """An explicit device="cpu" works; without it the entry points go to the
     card and raise where there is none (no quiet CPU run)."""
@@ -337,7 +512,8 @@ def test_default_device_is_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device=\"cpu\""):
         utils.default_device()
-    for build in (flagship, probe, podscale, lambda: baseline_config(1)):
+    for build in (flagship, probe, podscale, lambda: baseline_config(1),
+                  lambda: long_horizon(8), lambda: flagship(method="riccati")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
     Q = np.tile(np.eye(4), (2, 4, 1, 1))
@@ -360,6 +536,8 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert "pmpc_tpu_torch.torch_scp" in mods and "pmpc_tpu_torch.ops.chol_inv" in mods
+    assert {"pmpc_tpu_torch.solvers.riccati", "pmpc_tpu_torch.solvers.riccati_ipm",
+            "pmpc_tpu_torch.flagship", "pmpc_tpu_torch.profile_call"} <= set(mods)
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
