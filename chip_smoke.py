@@ -49,9 +49,24 @@ happens and the run exits non-zero before the two JSON lines:
    (f64 must converge);
 phases 10-13 reach no hand-written kernel (the JAX package's Riccati path
 reaches no Pallas kernel either): their launch counts must stay 0;
-then one JSON line for the kernels and, last, one JSON line for the run. Every
-solver phase sets the launch counts to 0 before its timed call and reads them
-after it.
+14. BASELINE config 3 (one Dubins car, N=20, box controls +-1 and the cone
+   ||u_j|| <= 0.9 on every stage) at its full batch B=512, f32 and f64, each
+   warmed: ms per call, converged solves/s, converged_frac (f64 gated at
+   0.95), the slowest lane's SCP iterations, lanes whose IPM gave up, the
+   largest |u| and ||u_j|| (both dtypes gated), |U32 - U64|; the cone path
+   forms its 40 x 40 Newton blocks, so K2 alone at (512, 40, 40);
+15. the flagship instance with the cone ||u_j|| <= 0.9 on every stage, B=4,
+   f64, tight IPM solves: the condensed route (K2 at (128, 50, 50) and
+   (4, 10, 10)) against the Riccati route (no kernel), U within 1e-7, the
+   IPM iteration counts printed;
+16. linear extra rows (`ExtraRows`) that restate some control upper bounds,
+   against the same bounds as boxes, on the flagship instance's first
+   subproblem in f64 (U within 1e-6; the rows' l x l Schur factor is K2);
+   then the B=64 flagship with ``ipm_predictor=False`` and with
+   ``ipm_gondzio=2``, f32: converged_frac and rate reported;
+then phase 9 once more for the shapes phases 10-16 launched, one JSON line
+for the kernels and, last, one JSON line for the run. Every solver phase sets
+the launch counts to 0 before its timed call and reads them after it.
 """
 
 import json
@@ -64,9 +79,11 @@ import numpy as np
 import torch
 
 from pmpc_tpu_torch.dynamics import dynamics_violation, linearize
-from pmpc_tpu_torch.flagship import (HEADLINE_KW, dubins, flagship, long_horizon,
-                                     podscale, probe, stack_varied)
+from pmpc_tpu_torch.flagship import (HEADLINE_KW, SOC_R3, baseline_config, dubins,
+                                     flagship, long_horizon, podscale, probe, stack_varied)
 from pmpc_tpu_torch.ops import chol_inv
+from pmpc_tpu_torch.solvers import ipm
+from pmpc_tpu_torch.solvers.reduced import assemble_condensed
 from pmpc_tpu_torch.utils import matmul_precision_scope
 
 ROOT = Path(__file__).resolve().parent
@@ -89,11 +106,16 @@ KERNELS = {
     "inv_cholesky_diag_big": ("pmpc_tpu/ops/pallas_chol.py:149", True, (2048, 90), "podscale"),
     "inv_cholesky_big": ("pmpc_tpu/ops/pallas_chol.py:176", False, (2048, 90), "unbounded"),
 }
-# published peaks of one H100 SXM: HBM bytes/s, f32 FLOP/s outside the tensor cores
-PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# published peaks of one H100 SXM: HBM bytes/s, FLOP/s outside the tensor cores
+# (f32 67e12; f64 34e12, NVIDIA's data sheet)
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # further shapes the phases launch: (adds a diagonal, batch, n)
-OTHER_SHAPES = ((True, 8, 50), (False, 1, 10), (False, 32, 10), (False, 2048, 50))
+OTHER_SHAPES = ((True, 8, 50), (False, 1, 10), (False, 32, 10), (False, 2048, 50),
+                (False, 512, 40), (False, 128, 50), (False, 4, 10))
 K2_WIDE = (2048, 50)  # K2's second timed shape, from the state-box phase
+K2_CONE = (512, 40)  # K2's third timed shape: config 3's cone Newton blocks
+B_CONFIG3 = 512
 FAILED = []
 CHECKED = set()  # (adds a diagonal, batch, n, dtype) held against plain
 
@@ -138,10 +160,10 @@ def bound(diag, A, w):
     larger of the bytes the function must move (the lower triangle of A and
     the weights read once, the full block written once) over the memory rate,
     and n^3/3 (factor) + n^3/3 (triangular inverse) flops per block over the
-    f32 rate."""
+    rate of A's dtype."""
     B, n = A.shape[0], A.shape[-1]
     nbytes = B * (n * (n + 1) // 2 + n * n + (n if diag else 0)) * A.element_size()
-    t_bytes, t_ops = nbytes / PEAK_BYTES, B * (2.0 / 3.0) * n ** 3 / PEAK_F32
+    t_bytes, t_ops = nbytes / PEAK_BYTES, B * (2.0 / 3.0) * n ** 3 / PEAK_FLOPS[A.dtype]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -212,11 +234,12 @@ def phase_kernels(dev, card):
                     f"{name} is not the kernel that ({B}, {n}, {n}) routes to")
             if dtype == torch.float32:
                 results[name] = {"shape": [B, n, n], "max_abs_err": err}
+    other = {}
     for diag, B, n in OTHER_SHAPES:
         for dtype in (torch.float32, torch.float64):
             err = check(diag, *spd_inputs(B, n, dtype, dev))
-            if (B, n) == K2_WIDE and dtype == torch.float32:
-                wide = {"shape": [B, n, n], "max_abs_err": err}
+            if (B, n) in (K2_WIDE, K2_CONE):
+                other[(B, n, dtype)] = {"shape": [B, n, n], "max_abs_err": err}
     for n in (1, 7, 8, 9, 33, 63, 64, 65, 72, 95, 96):
         for dtype in (torch.float32, torch.float64):
             A, w = spd_inputs(37, n, dtype, dev, seed=n)
@@ -263,13 +286,17 @@ def phase_kernels(dev, card):
         require(False, "n = 97 was not refused")
     except NotImplementedError as e:
         print(f"  n = 97 refused: {e}")
-    # time at the main-path shapes, f32: plain, library, kernel, kernel, library, plain
-    results["inv_cholesky"]["other_shapes"] = [wide]
-    timed = [(name, diag, B, n, results[name])
+    # time at the main-path shapes, f32 (K2's cone shape in f64 too): plain,
+    # library, kernel, kernel, library, plain
+    f32, f64 = torch.float32, torch.float64
+    results["inv_cholesky"]["other_shapes"] = [other[K2_WIDE + (f32,)], other[K2_CONE + (f32,)]]
+    timed = [(name, diag, B, n, f32, results[name])
              for name, (_, diag, (B, n), _) in KERNELS.items()]
-    timed.insert(2, ("inv_cholesky", False, *K2_WIDE, wide))
-    for name, diag, B, n, r in timed:
-        A, w = spd_inputs(B, n, torch.float32, dev)
+    timed[2:2] = [("inv_cholesky", False, *K2_WIDE, f32, other[K2_WIDE + (f32,)]),
+                  ("inv_cholesky", False, *K2_CONE, f32, other[K2_CONE + (f32,)]),
+                  ("inv_cholesky", False, *K2_CONE, f64, other[K2_CONE + (f64,)])]
+    for name, diag, B, n, dtype, r in timed:
+        A, w = spd_inputs(B, n, dtype, dev)
         fns = {"plain": lambda: run(diag, A, w, plain=True),
                "library": lambda: library(diag, A, w),
                "kernel": lambda: run(diag, A, w)}
@@ -280,7 +307,7 @@ def phase_kernels(dev, card):
         r["ms"], r["plain_ms"], r["library_ms"] = (
             sum(t[k]) / 2 for k in ("kernel", "plain", "library"))
         r["bound_ms"], r["bound_by"] = bound(diag, A, w)
-        print(f"  {name} ({B}, {n}, {n}) f32: kernel {r['ms']:.4f} ms, plain "
+        print(f"  {name} ({B}, {n}, {n}) {str(dtype)[6:]}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library (cholesky_ex + solve_triangular) "
               f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}% of it) [{card}]")
@@ -317,7 +344,7 @@ def timed_call(solver, stack, warm_solver=None):
     before it and read after it: (X, U, info, seconds, launches). The long
     Riccati calls launch the same small kernels hundreds of thousands of
     times: they are warmed by ``warm_solver``, a solver of the same shapes
-    with fewer SCP iterations."""
+    with fewer SCP iterations (a no-op where the caller has warmed)."""
     (warm_solver or solver)(stack)
     torch.cuda.synchronize()
     chol_inv.reset_launch_counts()
@@ -568,6 +595,126 @@ def phase_riccati_podscale(dev, card):
     require(frac >= 0.95, f"[13] {what} f64 converged_frac {frac} < 0.95 at 2.5e-3")
 
 
+def phase_config3(dev, card):
+    """BASELINE config 3 at its full batch, f32 then f64. Returns the f32
+    call's launches."""
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
+        solver, data, B = baseline_config(3, dtype, device=dev)
+        stack = stack_varied(data, B, scale=0.02)
+        # the warm-up: a call that keeps the per-iteration stats (it runs all
+        # max_it iterations), for the lanes whose IPM gave up in some SCP
+        # iteration
+        stats = baseline_config(3, dtype, device=dev, collect_stats=True)[0](stack)[2]
+        failed = int(stats["scan_stats"]["ipm_failed"].any(1).sum())
+        X, U, info, dt, launches = timed_call(solver, stack, warm_solver=lambda _: None)
+        frac, _, _ = report(14, f"config 3 (box +-1, cone ||u_j|| <= {SOC_R3}) B={B} M=1 N=20 "
+                            f"{name} AA", info, dt, launches, card)
+        u_max, u_norm_max = U.abs().max().item(), U.norm(dim=-1).max().item()
+        print(f"    lanes whose IPM gave up in some SCP iteration: {failed}; max |u| "
+              f"{u_max:.7f}, max ||u_j|| {u_norm_max:.7f}; K2 (inv_cholesky) launches at "
+              f"({B}, 40, 40): {launches['inv_cholesky']}")
+        require(torch.isfinite(X).all() and torch.isfinite(U).all()
+                and U.shape == (B, 1, 20, 2), f"[14] config 3 {name} output is not finite "
+                "or has the wrong shape")
+        require(u_max <= 1 + 1e-5, f"[14] config 3 {name}: the control box is violated")
+        require(u_norm_max <= SOC_R3 + 1e-4, f"[14] config 3 {name}: the cone is violated")
+        # nc = 0 and formed Newton blocks: K2 at (512, 40, 40) alone
+        require(only_launched(launches, ("inv_cholesky",))
+                and ("inv_cholesky", B, 40, dtype) in chol_inv.SHAPES,
+                f"[14] config 3 {name} launches {launches}: expected K2 at ({B}, 40, 40) only")
+        out[dtype] = (U, frac, launches)
+    (U32, _, launches32), (U64, frac64, _) = out[torch.float32], out[torch.float64]
+    print(f"    |U32 - U64|_inf = {(U32.double() - U64).abs().max().item():.3e}")
+    require(frac64 >= 0.95, f"[14] config 3 f64 converged_frac {frac64} < 0.95")
+    return launches32
+
+
+def phase_soc_agrees(dev, card):
+    """The cone-constrained flagship instance through both routes, f64:
+    the same Mehrotra steps, only the Newton solver differs."""
+    kw = dict(max_it=8, res_tol=1e-7, ipm_iters=40, ipm_tol_exp=-8, collect_stats=True,
+              adaptive_tol=False, dtype=torch.float64, device=dev, u_soc_r=SOC_R3)
+    out = {}
+    for method in ("condensed", "riccati"):
+        solver, data = flagship(method=method, **kw)
+        out[method] = timed_call(solver, stack_varied(data, B_AGREE))
+    (_, Uc, ic, dtc, lc), (Xr, Ur, ir, dtr, lr) = out["condensed"], out["riccati"]
+    err = (Ur - Uc).abs().max().item()
+    its_c, its_r = (i["scan_stats"]["ipm_iters"] for i in (ic, ir))
+    print(f"[15] cone ||u_j|| <= {SOC_R3} on the flagship instance B={B_AGREE} M=32 N=30 Nc=5 "
+          f"f64, 8 SCP iterations: |U_riccati - U_condensed|_inf = {err:.3e} (tol 1e-7), "
+          f"IPM iterations per SCP iteration (lane 0) riccati {its_r[0].tolist()} condensed "
+          f"{its_c[0].tolist()}, equal on {int((its_r == its_c).sum())} of {its_c.numel()}; "
+          f"{dtr * 1e3:.1f} ms/call riccati, {dtc * 1e3:.1f} ms/call condensed [{card}]; "
+          f"launches condensed {lc}")
+    require(torch.isfinite(Xr).all() and torch.isfinite(Ur).all(),
+            "[15] riccati f64 output is not finite")
+    require(err <= 1e-7, f"[15] riccati and condensed differ by {err:.3e} > 1e-7 in f64")
+    require(max(U.norm(dim=-1).max().item() for U in (Uc, Ur)) <= SOC_R3 + 1e-7,
+            "[15] the cone is violated")
+    require(only_launched(lc, ("inv_cholesky",)), f"[15] condensed launches {lc}: expected K2 only")
+    no_kernel(15, lr)
+
+
+def phase_extra_rows(dev, card):
+    """Extra rows that restate control bounds against the same bounds as
+    boxes, then the flagship with the single-solve mode and with Gondzio
+    correctors."""
+    solver, data = flagship(dtype=torch.float64, device=dev)
+    st = stack_varied(data, B_AGREE)
+    Nc, N, udim, xdim = 5, 30, 2, 4
+    Bn, M = st.x0.shape[:2]
+    nc, nf = Nc * udim, (N - Nc) * udim
+    f, fx, fu = linearize(dubins, torch.cat([st.x0[:, :, None], st.X_prev[:, :, :-1]], 2),
+                          st.U_prev)
+    cqp = assemble_condensed(st.x0, f, fx, fu, st.X_prev, st.U_prev, st.Q, st.R, st.X_ref,
+                             st.U_ref, st.reg_x, st.reg_u, st.slew_reg, st.slew_reg0,
+                             st.slew_um1, Nc=Nc)
+    one = torch.ones((Bn, M, N * udim), dtype=torch.float64, device=dev)
+    box = ipm.BoxBounds(-one[:, 0, :nc], one[:, 0, :nc], -one[:, :, nc:], one[:, :, nc:])
+    # the rows' dual accuracy is ~sqrt(tol) (`ipm_core`): 1e-12 for 1e-6 in U
+    kw = dict(iters=60, tol_exp=-12)
+    uc, uf, _ = ipm.ipm_core(cqp, box, **kw)
+    # the six free controls of particle 0 that the box solve pushes most, held
+    # to half their value: as tighter boxes, and as rows +-u <= h
+    idx = uf[:, 0].abs().topk(6, dim=-1).indices  # (B, 6)
+    val = uf[:, 0].gather(-1, idx)
+    lo_f, hi_f = box.lo_f.clone(), box.hi_f.clone()
+    hi_f[:, 0].scatter_(-1, idx, torch.where(val > 0, 0.5 * val, 1.0))
+    lo_f[:, 0].scatter_(-1, idx, torch.where(val < 0, 0.5 * val, -1.0))
+    tight = box._replace(lo_f=lo_f, hi_f=hi_f)
+    G = torch.zeros((Bn, 6, nc + M * nf + M * N * xdim), dtype=torch.float64, device=dev)
+    G.scatter_(-1, (nc + idx)[..., None], torch.sign(val)[..., None])
+    rows = ipm.map_extras_rows(cqp, G, 0.5 * val.abs())
+    chol_inv.reset_launch_counts()
+    uc_b, uf_b, st_b = ipm.ipm_core(cqp, tight, **kw)
+    uc_e, uf_e, st_e = ipm.ipm_core(cqp, box, ex=rows, has_ex=True, **kw)
+    torch.cuda.synchronize()
+    launches = dict(chol_inv.LAUNCHES)
+    err = max((uc_e - uc_b).abs().max().item(), (uf_e - uf_b).abs().max().item())
+    moved = (uf_b[:, 0].gather(-1, idx) - val).abs().min().item()
+    print(f"[16] extra rows restating 6 control bounds (flagship instance, first subproblem, "
+          f"B={B_AGREE}, f64): |U_rows - U_boxes|_inf = {err:.3e} (tol 1e-6), IPM iterations "
+          f"rows {st_e['iters'].tolist()} boxes {st_b['iters'].tolist()}; the bounds move "
+          f"those controls by >= {moved:.3e}; launches {launches}")
+    require(st_e["converged"].all() and st_b["converged"].all(), "[16] an IPM did not converge")
+    require(err <= 1e-6, f"[16] extra rows and boxes differ by {err:.3e} > 1e-6")
+    require(moved > 1e-3, "[16] the restated bounds do not bind")
+    require(("inv_cholesky", Bn, 6, torch.float64) in chol_inv.SHAPES,
+            "[16] the rows' 6 x 6 Schur system did not go through K2")
+    for opt in (dict(ipm_predictor=False), dict(ipm_gondzio=2)):
+        solver, data = flagship(dtype=torch.float32, device=dev, **dict(HEADLINE_KW, **opt))
+        X, U, info, dt, launches = timed_call(solver, stack_varied(data, B_FLAGSHIP))
+        report(16, f"flagship B={B_FLAGSHIP} f32 AA with {opt}", info, dt, launches, card)
+        require(torch.isfinite(X).all() and torch.isfinite(U).all()
+                and U.abs().max().item() <= 1 + 1e-5,
+                f"[16] flagship with {opt}: output not finite or the box is violated")
+        require(only_launched(launches, ("inv_cholesky_diag", "inv_cholesky")),
+                f"[16] flagship with {opt} launches {launches}: expected K1 and K2")
+
+
 def main():
     card = phase_card()
     dev = torch.device("cuda", 0)
@@ -587,9 +734,14 @@ def main():
         phase_riccati_flagship(dev, card, U_flagship)
         phase_long_horizon(dev, card)
         phase_riccati_podscale(dev, card)
+        config3 = phase_config3(dev, card)
+        phase_soc_agrees(dev, card)
+        phase_extra_rows(dev, card)
+        phase_launched_shapes(dev)
     # the state-box phase launches K2 twice per IPM iteration, once at each shape
-    kern["inv_cholesky"]["other_shapes"][0]["launches"] = \
-        launches["state_box"]["inv_cholesky"] // 2
+    wide, cone = kern["inv_cholesky"]["other_shapes"]
+    wide["launches"] = launches["state_box"]["inv_cholesky"] // 2
+    cone["launches"] = config3["inv_cholesky"]
     for name, (_, _, _, path) in KERNELS.items():
         require(launches[path][name] > 0, f"the {path} path never launched {name}")
     if FAILED:

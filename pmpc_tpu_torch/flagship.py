@@ -1,6 +1,5 @@
 """The headline program, the accuracy-probe configuration, the BASELINE.json
-measurement configs 1, 2, 4 and 5 and the long-horizon configuration, in
-torch.
+measurement configs 1-5 and the long-horizon configuration, in torch.
 
 Twins of ``__graft_entry__._flagship``/``_dubins``, ``bench._stack_varied``,
 ``benchmarks/accuracy_probe.build``, ``benchmarks/configs.py`` and
@@ -68,15 +67,18 @@ def _np_dtype(dtype: torch.dtype):
     return {torch.float32: np.float32, torch.float64: np.float64}[dtype]
 
 
-def _instance(x0, N, udim, dtype, device, bounded=True) -> SCPData:
+def _instance(x0, N, udim, dtype, device, bounded=True, u_soc_r=None) -> SCPData:
     """One (M, ...) Dubins problem from its numpy x0 (M, xdim): identity Q,
-    R = 1e-2 I, box controls +-1 when ``bounded``."""
+    R = 1e-2 I, box controls +-1 when ``bounded``, the cone ||u_j|| <=
+    ``u_soc_r`` on every stage when that is given."""
     nd = x0.dtype
     M, xdim = x0.shape
     Q = np.tile(np.eye(xdim, dtype=nd), (M, N, 1, 1))
     R = np.tile((1e-2 * np.eye(udim)).astype(nd), (M, N, 1, 1))
     box = dict(u_l=-np.ones((M, N, udim), nd), u_u=np.ones((M, N, udim), nd)) \
         if bounded else {}
+    if u_soc_r is not None:
+        box["u_soc_r"] = np.full((M, N), u_soc_r, nd)
     return make_scp_data(x0, Q, R, reg_x=1.0, reg_u=0.1, dtype=dtype,
                          device=device, **box)
 
@@ -89,14 +91,18 @@ def _x0_seed0(M, xdim, dtype):
 
 
 def flagship(M=32, N=30, xdim=4, udim=2, Nc=5, max_it=8, dtype=torch.float32,
-             res_tol=1e-5, ipm_iters=15, device=None, **build_kw):
+             res_tol=1e-5, ipm_iters=15, device=None, u_soc_r=None, **build_kw):
     """(solver, data): the headline Dubins-car problem, data (M, ...);
     batch it with `stack_varied`. ``method="riccati"`` (as any other option
-    of `build_scp_solver`) sends the same instance through the O(N) route."""
+    of `build_scp_solver`) sends the same instance through the O(N) route.
+    ``u_soc_r``: add the cone ||u_j|| <= u_soc_r on every stage (not part
+    of the headline program: the cone-constrained variant of its shape)."""
     solver = build_scp_solver(
         dubins, N=N, xdim=xdim, udim=udim, M=M, Nc=Nc, max_it=max_it,
-        res_tol=res_tol, has_u_bounds=True, ipm_iters=ipm_iters, **build_kw)
-    return solver, _instance(_x0_seed0(M, xdim, dtype), N, udim, dtype, device)
+        res_tol=res_tol, has_u_bounds=True, ipm_iters=ipm_iters,
+        has_u_soc=u_soc_r is not None, **build_kw)
+    return solver, _instance(_x0_seed0(M, xdim, dtype), N, udim, dtype, device,
+                             u_soc_r=u_soc_r)
 
 
 def stack_varied(data: SCPData, B: int, scale: float = 0.05) -> SCPData:
@@ -159,16 +165,21 @@ def obstacle_lin_cost(X_prev, U_prev, data):
     return cx, None
 
 
+SOC_R3 = 0.9  # config 3's thrust cone ||u_j|| <= 0.9
+
+
 def baseline_config(k: int, dtype=torch.float32, device=None, **build_kw):
-    """(solver, data (M, ...), B): BASELINE.json config ``k`` in {1, 2, 4} as
-    ``benchmarks/configs.py`` builds it, with the batch size it runs at
+    """(solver, data (M, ...), B): BASELINE.json config ``k`` in {1, 2, 3, 4}
+    as ``benchmarks/configs.py`` builds it, with the batch size it runs at
     (``stack_varied(data, B, scale=0.02)``). 1: single-system quadratic MPC,
-    N=20; 2: consensus over M=10 particles sharing the first control; 4:
-    config 1 with the obstacle cost (`obstacle_lin_cost`). All unbounded."""
+    N=20; 2: consensus over M=10 particles sharing the first control; 3:
+    config 1 with box controls +-1 and the cone ||u_j|| <= 0.9 on every
+    stage (the IPM's cone path); 4: config 1 with the obstacle cost
+    (`obstacle_lin_cost`). 1, 2 and 4 are unbounded."""
     N, xdim, udim = 20, 4, 2
-    if k not in (1, 2, 4):
-        raise ValueError(f"baseline_config takes k in (1, 2, 4), got {k} "
-                         "(3: SOC, not ported; 5: `podscale`)")
+    if k not in (1, 2, 3, 4):
+        raise ValueError(f"baseline_config takes k in (1, 2, 3, 4), got {k} "
+                         "(5: `podscale`)")
     M, Nc, B = (10, 1, 128) if k == 2 else (1, 0, 512)
     nd = _np_dtype(dtype)
     x0 = np.ones((M, xdim), nd)
@@ -177,8 +188,11 @@ def baseline_config(k: int, dtype=torch.float32, device=None, **build_kw):
     kw = dict(CONFIG_KW, **build_kw)
     if k == 4:
         kw["lin_cost_fn"] = obstacle_lin_cost
+    if k == 3:
+        kw.update(has_u_bounds=True, has_u_soc=True)
     solver = build_scp_solver(dubins, N=N, xdim=xdim, udim=udim, M=M, Nc=Nc, **kw)
-    return solver, _instance(x0, N, udim, dtype, device, bounded=False), B
+    return solver, _instance(x0, N, udim, dtype, device, bounded=k == 3,
+                             u_soc_r=SOC_R3 if k == 3 else None), B
 
 
 def probe(dtype=torch.float64, device=None):

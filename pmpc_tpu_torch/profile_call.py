@@ -1,6 +1,6 @@
 """Where one batched solver call spends its time on the card.
 
-    python3 -m pmpc_tpu_torch.profile_call flagship|podscale|podscale64|podscale64_1e-3|unbounded|riccati_flagship|long140|long280
+    python3 -m pmpc_tpu_torch.profile_call flagship|podscale|podscale64|podscale64_1e-3|unbounded|riccati_flagship|long140|long280|config3
 
 Builds the named configuration as `chip_smoke.py` does, runs one warm-up call
 and one timed call, then one call under ``torch.profiler`` and prints: the
@@ -18,7 +18,8 @@ import time
 
 import torch
 
-from .flagship import HEADLINE_KW, flagship, long_horizon, podscale, stack_varied
+from .flagship import HEADLINE_KW, baseline_config, flagship, long_horizon, podscale, \
+    stack_varied
 from .utils import default_device
 
 # name -> (build(**options) -> (solver, data), batch, x0 spread, horizon of a
@@ -36,6 +37,8 @@ CONFIGS = {
                                                **HEADLINE_KW, **kw), 64, 0.05, 30),
     "long140": (lambda **kw: long_horizon(140, **kw), 1, 0.0, 140),
     "long280": (lambda **kw: long_horizon(280, **kw), 1, 0.0, 280),
+    # BASELINE config 3 at its batch: box controls and the cone ||u_j|| <= 0.9
+    "config3": (lambda **kw: baseline_config(3, torch.float32, **kw)[:2], 512, 0.02, None),
 }
 
 

@@ -1,9 +1,10 @@
 """Stage-structured (Riccati) box-constrained IPM: the O(N) long-horizon path.
 
-Twin of ``pmpc_tpu/solvers/riccati_ipm.py``, box path: control boxes, state
-boxes (also under the slew augmentation, where the box sees only the first
-``nxb`` entries of the stage state), warm start, ``tol_dynamic``, ``tau``,
-``kappa``. SOC cones, linear extra rows and ``mu_target > 0`` raise.
+Twin of ``pmpc_tpu/solvers/riccati_ipm.py``: control boxes, state boxes
+(also under the slew augmentation, where the box sees only the first ``nxb``
+entries of the stage state), per-stage control-norm cones (``soc_rc`` /
+``soc_rf``), ``mu_target > 0``, warm start, ``tol_dynamic``, ``tau``,
+``kappa``. Linear extra rows raise (ROADMAP §1.9).
 
 The condensed IPM (`ipm.py`) materializes the O(N^2) sensitivity ``Ft`` and
 factors (Nf udim)^2 dense blocks per particle. This module runs the SAME
@@ -22,7 +23,10 @@ theta-parameterized Riccati sweep, never building ``Ft``:
   JAX package differentiates the rollout with ``jax.grad``; here the adjoint
   recursion is written out, `_stage_obj_grad`);
 - consensus (shared first-Nc controls) is the sum over particles of the
-  per-particle theta-quadratics.
+  per-particle theta-quadratics;
+- a cone's NT scaling is a dense (udim x udim) block in control space: a
+  free stage's lands on its ``Rt_j``, a consensus stage's on its block of
+  the theta Schur complement, so the cones cost no sweep.
 
 The JAX core takes one scenario of (M, ...) arrays under ``jax.vmap``; here
 the scenario axis B is explicit, every stage array is (B, M, N, ...), every
@@ -50,6 +54,8 @@ import torch
 
 from ..ops.linalg import cholesky_factor, cholesky_solve
 from ..utils import full_matmul_precision, lane_where
+from .coneipm import _soc_W, _soc_inv, _soc_prod, _soc_shift, _soc_step_len, _soc_viol
+from .ipm import _block_diag, _mv
 from .riccati import _flat, _scp_stage_terms, augment_slew_stages
 
 
@@ -71,10 +77,13 @@ class RIPMState(NamedTuple):
     uf: torch.Tensor  # (B, M, nfu)
     s: torch.Tensor  # (B, mtot) slacks [c_lo; c_hi; f_lo; f_hi; x_lo; x_hi]
     lam: torch.Tensor  # (B, mtot)
+    sq: torch.Tensor  # (B, nq, 1 + udim) cone slacks ((B, 1, 1) zeros without cones)
+    zq: torch.Tensor  # (B, nq, 1 + udim) cone multipliers
     mu: torch.Tensor  # (B,)
     done: torch.Tensor  # (B,) bool
     ok: torch.Tensor  # (B,) bool
     iters: torch.Tensor  # (B,) int32
+    badc: torch.Tensor  # (B,) int32 consecutive breakdowns (the cone retry counter)
     failed: torch.Tensor  # (B,) bool: froze on a bad (non-finite or diverged)
     #                       step without converging
 
@@ -292,14 +301,18 @@ def _forward(x0, c, A, B, K, k, theta, Nc: int):
     return X[..., 0].reshape(lead + X.shape[1:3]), U[..., 0].reshape(lead + U.shape[1:3])
 
 
-def _schur_factor(P0, wc, maskc, xdim: int, kappa: float):
+def _schur_factor(P0, wc, maskc, xdim: int, kappa: float, S_extra=None):
     """Factor of the consensus system: the particles' theta-quadratics summed
     (P0 (B, M, na, na)), the consensus box weights wc (B, nct) on the
-    diagonal, dead theta entries pinned to 0 by identity rows."""
+    diagonal, ``S_extra`` (B, nct, nct) (the consensus stages' cone blocks)
+    on the live entries, dead theta entries pinned to 0 by identity rows."""
     nct = maskc.shape[0]
     eye = torch.eye(nct, dtype=P0.dtype, device=P0.device)
-    S_tot = P0[..., xdim:, xdim:].sum(dim=-3) * (maskc[:, None] * maskc[None, :]) \
+    live = maskc[:, None] * maskc[None, :]
+    S_tot = P0[..., xdim:, xdim:].sum(dim=-3) * live \
         + torch.diag_embed(wc * maskc) + (1.0 - maskc) * eye + kappa * eye
+    if S_extra is not None:
+        S_tot = S_tot + S_extra * live
     return cholesky_factor(S_tot)
 
 
@@ -358,7 +371,7 @@ def riccati_ipm_core(
     ex_h=None,
     scan_unroll: int = 1,
 ):
-    """Mehrotra box IPM over (theta, u_free) with Riccati-sweep Newton solves.
+    """Mehrotra IPM over (theta, u_free) with Riccati-sweep Newton solves.
 
     Args:
         x0 (B, M, xdim); c/A/B/Qt/xt/Rt/ut: per-particle stage data
@@ -367,26 +380,33 @@ def riccati_ipm_core(
             particle 0's rows).
         lo_f/hi_f (B, M, nfu): free control bounds, nfu = (N - Nc) * udim.
         warm: (theta (B, nct), uf (B, M, nfu), s (B, mtot), lam (B, mtot))
-            from a previous nearby solve.
+            from a previous nearby solve; with cones the same plus (sq, zq)
+            (B, nq, 1 + udim).
         tol_dynamic (B,): overrides the static ``10**tol_exp`` where larger.
         x_lo/x_hi (B, M, N, nxb): STATE box bounds on the rolled-out states
             x_1..x_N (+-inf rows inactive). ``nxb`` may be smaller than the
             stage state dim (the slew augmentation appends control memory the
             box must not see).
+        soc_rc (B, Nc) / soc_rf (B, M, Nf): per-stage control-norm cone radii
+            ``||u_j|| <= r_j`` (+inf: no cone; the consensus stages carry one
+            shared cone each, particle 0's radius). nq = Nc + M Nf cones,
+            consensus first. A breakdown (a non-finite step, or a cone point
+            that left its cone) keeps the iterate, shifts the cone points
+            inward and retries with a regularization boost; the fourth in a
+            row gives up.
+        mu_target > 0: stop on the central path at that duality measure
+            (the logbarrier smoothing's solution), then 10 pure centering
+            steps.
         scan_unroll: taken for signature parity, without effect (it tunes
             the JAX package's scans).
-        soc_rc/soc_rf, ex_G*/ex_h, mu_target > 0: not ported, they raise.
+        ex_G*/ex_h: not ported, they raise.
 
     Returns (theta (B, nct), uf (B, M, nfu), stats): mu, iters, converged,
-    failed (each (B,)), s, lam. Recover trajectories with `recover_XU_stage`.
+    failed (each (B,)), s, lam, sq, zq. Recover trajectories with
+    `recover_XU_stage`.
     """
-    if soc_rc is not None or soc_rf is not None:
-        _unsupported("per-stage control-norm cones (soc_rc, soc_rf)",
-                     "ROADMAP §1.7, after §1.4's SOC slice")
     if any(a is not None for a in (ex_Gc, ex_Gf, ex_Gx, ex_h)):
-        _unsupported("linear extra rows (ex_*)", "ROADMAP §1.7, with the host dispatcher §1.9")
-    if mu_target > 0:
-        _unsupported("mu_target > 0 (centering phase)", "ROADMAP §1.7")
+        _unsupported("linear extra rows (ex_*)", "ROADMAP §1.9, with the host dispatcher")
 
     Bn, M, N, xdim = c.shape
     udim = B.shape[-1]
@@ -396,6 +416,7 @@ def riccati_ipm_core(
     Nf = N - Nc
     nfu = Nf * udim
     has_x = x_lo is not None
+    has_soc = soc_rc is not None
     nxb = x_lo.shape[-1] if has_x else 0
     mx = M * N * nxb
     o_chi, o_flo, o_fhi = nct, 2 * nct, 2 * nct + M * nfu
@@ -406,6 +427,7 @@ def riccati_ipm_core(
     if tol_dynamic is not None:
         tol = torch.maximum(tol_dynamic.to(dtype), tol)
     sqrt_tol = torch.sqrt(tol)
+    mu_ok_floor = torch.clamp(tol, min=mu_target * 1.05)
     tau = 0.99 if tau is None else tau
 
     bound_blocks = [lo_c, hi_c, lo_f.reshape(Bn, -1), hi_f.reshape(Bn, -1)]
@@ -413,7 +435,41 @@ def riccati_ipm_core(
         bound_blocks += [x_lo.reshape(Bn, -1), x_hi.reshape(Bn, -1)]
     mask = torch.isfinite(torch.cat(bound_blocks, -1))
     mask[:, :2 * nct] &= (maskc > 0).repeat(2)
-    n_act = torch.clamp(mask.sum(-1).to(dtype), min=1.0)
+    n_act = mask.sum(-1).to(dtype)
+
+    # -- the cones: (B, nq, p) points, consensus stages first ------------------
+    if has_soc:
+        p = udim + 1
+        nq = Nc + M * Nf
+        r_flat = torch.cat([soc_rc, soc_rf.reshape(Bn, -1)], -1)  # (B, nq)
+        rmask = torch.isfinite(r_flat)
+        rmaskf = rmask.to(dtype)
+        e_soc = torch.zeros((nq, p), dtype=dtype, device=dev)
+        e_soc[:, 0] = 1.0
+        n_act = n_act + rmask.sum(-1).to(dtype)
+        eye_u = torch.eye(udim, dtype=dtype, device=dev)
+        eye_c = torch.eye(nct, dtype=dtype, device=dev)
+
+        def cone_vals(theta, uf):
+            """h - G z per cone: [r_k; u_stage] (B, nq, p); e on masked cones."""
+            u_all = torch.cat([(theta * maskc)[:, :Nc * udim].reshape(Bn, Nc, udim),
+                               uf.reshape(Bn, M * Nf, udim)], 1)
+            vals = torch.cat([r_flat[..., None], u_all], -1)
+            return torch.where(rmask[..., None], vals, e_soc)
+
+        def cone_scatter(vq):
+            """S' vq[1:] -> (theta part (B, nct), free part (B, M, nfu));
+            masked cones give 0."""
+            vq = vq * rmaskf[..., None]
+            gth = torch.cat([vq[:, :Nc, 1:].reshape(Bn, Nc * udim),
+                             vq.new_zeros((Bn, nct - Nc * udim))], -1)
+            return gth * maskc, vq[:, Nc:, 1:].reshape(Bn, M, nfu)
+
+        def cone_gdv(dth, duf):
+            """G dz per cone = [0; -du_stage]; masked cones give 0."""
+            du = cone_vals(dth, duf)[..., 1:]
+            return torch.cat([torch.zeros_like(du[..., :1]), -du], -1) * rmaskf[..., None]
+    n_act = torch.clamp(n_act, min=1.0)
 
     # the flat (B*M) batch the sweeps run on, vectors as columns
     col = lambda a: _flat(a, 2)[..., None]
@@ -454,23 +510,30 @@ def riccati_ipm_core(
         return (v[:, o_chi:o_flo] - v[:, :nct],
                 (v[:, o_fhi:o_xlo] - v[:, o_flo:o_fhi]).reshape(Bn, M, nfu))
 
-    def mu_of(s_, lam_):
-        return torch.where(mask, s_ * lam_, 0.0).sum(-1) / n_act
+    def mu_of(s_, lam_, sq_, zq_):
+        tot = torch.where(mask, s_ * lam_, 0.0).sum(-1)
+        if has_soc:
+            tot = tot + (rmaskf * (sq_ * zq_).sum(-1)).sum(-1)
+        return tot / n_act
 
-    def newton_factor(wc, wf, wx):
-        """Factor H + diag(w): free-stage box weights onto Rt_j, consensus
-        box weights onto the theta Schur complement, state-box weights onto
-        the first nxb diagonal entries of Qt_j (the recursion propagates
-        them through the dynamics chain)."""
+    def newton_factor(wc, wf, wx, Bq_free=None, Sc_blk=None):
+        """Factor H + diag(w) (+ the cone blocks): free-stage box weights
+        onto Rt_j, consensus box weights onto the theta Schur complement,
+        state-box weights onto the first nxb diagonal entries of Qt_j (the
+        recursion propagates them through the dynamics chain); the free
+        stages' cone blocks (nb, Nf, udim, udim) onto Rt_j, the consensus
+        stages' (B, nct, nct) onto the theta Schur complement."""
         Rk = Rk0.clone()
         Rk[:, Nc:].diagonal(dim1=-2, dim2=-1).add_(wf.reshape(nb, Nf, udim))
+        if Bq_free is not None:
+            Rk[:, Nc:] += Bq_free
         Qa = Qa0
         if has_x:
             Qa = Qa0.clone()
             Qa.diagonal(dim1=-2, dim2=-1)[..., :nxb].add_(wx.reshape(nb, N, nxb))
         Mn, L, K, Huy, P0 = _factor(W, Qa, Rk, Nc)
         LS = _schur_factor(P0.reshape(Bn, M, xdim + nct, xdim + nct), wc, maskc,
-                           xdim, kappa)
+                           xdim, kappa, Sc_blk)
 
         def solve(bc, bf):
             """(dtheta, duf, the states' direction) for one right-hand side."""
@@ -499,44 +562,80 @@ def riccati_ipm_core(
         sv = slack_vals(th0, uf0, rollout(th0, uf0)[1])
         s0 = torch.where(mask, torch.clamp(sv, min=1.0), 1.0)
         lam0 = torch.where(mask, 1.0 / s0, 0.0)
+    if has_soc:
+        sq0 = _soc_shift(cone_vals(th0, uf0))
+        if warm is not None and len(warm) >= 6:
+            zq0 = _soc_shift(torch.where(rmask[..., None], warm[5], e_soc))
+        else:
+            zq0 = e_soc.expand(Bn, nq, p).clone()
+    else:  # placeholders: the cone fields of the state carry nothing
+        sq0 = zq0 = torch.zeros((Bn, 1, 1), dtype=dtype, device=dev)
     false = torch.zeros(Bn, dtype=torch.bool, device=dev)
-    state = RIPMState(th0, uf0, s0, lam0, mu_of(s0, lam0), false, false,
-                      torch.zeros(Bn, dtype=torch.int32, device=dev), false)
+    zero_i = torch.zeros(Bn, dtype=torch.int32, device=dev)
+    state = RIPMState(th0, uf0, s0, lam0, sq0, zq0, mu_of(s0, lam0, sq0, zq0),
+                      false, false, zero_i, zero_i, false)
 
     w_max = 1e14 if dtype == torch.float64 else 1e7
 
-    def body(st: RIPMState) -> RIPMState:
-        theta, uf, s, lam, mu, done, ok, it_count, failed = st
+    def body(st: RIPMState, mehrotra: bool = True) -> RIPMState:
+        theta, uf, s, lam, sq, zq, mu, done, ok, it_count, badc, failed = st
         U, X = rollout(theta, uf)
         r_p = torch.where(mask, s - slack_vals(theta, uf, X), 0.0)
-        # the predictor's complementarity target is s*lam
-        v_aff = torch.where(mask, (lam * r_p - s * lam) / s, 0.0)
+        # the first solve's complementarity target: s*lam for the predictor,
+        # mu_target for a pure centering step
+        r_c1 = torch.where(mask, s * lam - (0.0 if mehrotra else mu_target), 0.0)
+        v1 = torch.where(mask, (lam * r_p - r_c1) / s, 0.0)
         # gradient of the Lagrangian in factored form: the objective's
         # adjoint sources Qt x - xt and the state rows' multipliers share one
-        # sweep; the predictor's state-row pull is its second column
+        # sweep; the first solve's state-row pull is its second column
         V = Qtf @ X - xtf
         if has_x:
-            V = torch.cat([V + x_rows(lam), x_rows(v_aff)], dim=-1)
+            V = torch.cat([V + x_rows(lam), x_rows(v1)], dim=-1)
         pulled = _adjoint_flat(Af, Bf, V)
         gth, gfu = _pull(Rtf @ U - utf_ + pulled[..., :1], Bn, M, Nc, nct)
         dc, df = u_rows(lam)
         gc, gf = (gth + dc) * maskc, gfu + df
 
         w = torch.where(mask, torch.clamp(lam / s, max=w_max), 0.0)
+        cone_kw = {}
+        if has_soc:
+            # the cone Jacobian G_k' z_k = -S_k' z_k[1:]
+            zc, zf = cone_scatter(zq)
+            gc, gf = gc - zc, gf - zf
+            # NT scalings per cone; r_pq = s - (h - Gz)
+            r_pq = (sq - cone_vals(theta, uf)) * rmaskf[..., None]
+            Wq, Wqinv, Wq2inv, lamq = _soc_W(sq, zq)
+            Bq = Wq2inv[..., 1:, 1:] * rmaskf[..., None, None]
+            # a breakdown keeps the iterate and re-solves with a boosted
+            # regularization: the cone scalings grow ~1/mu near the boundary
+            boost = (badc.to(dtype) ** 2 * 1e-5 * (1.0 + mu))[:, None, None]
+            Bq_free = Bq[:, Nc:].reshape(Bn, M, Nf, udim, udim) + boost[..., None, None] * eye_u
+            Sc_blk = boost * eye_c
+            if Nc:
+                Sc_blk = Sc_blk + torch.nn.functional.pad(
+                    _block_diag(Bq[:, :Nc]), (0, nct - Nc * udim, 0, nct - Nc * udim))
+            cone_kw = dict(Bq_free=Bq_free.reshape(nb, Nf, udim, udim), Sc_blk=Sc_blk)
         solve = newton_factor(
             w[:, :nct] + w[:, o_chi:o_flo],
             (w[:, o_flo:o_fhi] + w[:, o_fhi:o_xlo]).reshape(Bn, M, nfu),
-            w[:, o_xlo:o_xhi] + w[:, o_xhi:] if has_x else None)
+            w[:, o_xlo:o_xhi] + w[:, o_xhi:] if has_x else None, **cone_kw)
 
-        def newton_rhs(v, x_pull):
-            """-(grad + G'v); ``x_pull`` is the adjoint of v's state rows."""
+        def newton_rhs(v, x_pull, dq_c):
+            """-(grad + G'v) (+ the cones' term); ``x_pull`` is the adjoint
+            of v's state rows."""
             dc, df = u_rows(v)
             if has_x:
                 xc, xf = _pull(x_pull, Bn, M, Nc, nct)
                 dc, df = dc + xc * maskc, df + xf
-            return -(gc + dc) * maskc, -(gf + df)
+            bc, bf = -(gc + dc) * maskc, -(gf + df)
+            vq = None
+            if has_soc:
+                vq = _mv(Wq2inv, r_pq) - _mv(Wqinv, _soc_prod(_soc_inv(lamq), dq_c))
+                vqc, vqf = cone_scatter(vq)  # rhs -= G' vq = +S' vq[1:]
+                bc, bf = bc + vqc, bf + vqf
+            return bc, bf, vq
 
-        def recover_steps(dth, duf, dX, v):
+        def recover_steps(dth, duf, dX, v, vq):
             parts = [-dth, dth, -duf.reshape(Bn, -1), duf.reshape(Bn, -1)]
             if has_x:
                 dXb = boxed(dX)
@@ -544,55 +643,125 @@ def riccati_ipm_core(
             gdz = torch.cat(parts, -1)
             ds = torch.where(mask, -r_p - gdz, 0.0)
             dlam = torch.where(mask, w * gdz + v, 0.0)
-            return ds, dlam
+            dsq = dzq = None
+            if has_soc:
+                gdq = cone_gdv(dth, duf)
+                dsq = (-r_pq - gdq) * rmaskf[..., None]
+                dzq = (_mv(Wq2inv, gdq) + vq) * rmaskf[..., None]
+            return ds, dlam, dsq, dzq
 
-        def step_len(s_, ds, lam_, dlam):
+        def step_len(ds, dlam, dsq, dzq):
             # torch.where evaluates both branches: the inner guards keep the
             # unused branch finite
             rp_ = torch.where(mask & (ds < 0),
-                              -s_ / torch.where(ds < 0, ds, -1.0), torch.inf)
+                              -s / torch.where(ds < 0, ds, -1.0), torch.inf)
             rd_ = torch.where(mask & (dlam < 0),
-                              -lam_ / torch.where(dlam < 0, dlam, -1.0), torch.inf)
+                              -lam / torch.where(dlam < 0, dlam, -1.0), torch.inf)
             mins = torch.stack([rp_, rd_], 1).amin(-1)  # (B, 2)
-            return (torch.clamp(tau * mins[:, 0], max=1.0),
-                    torch.clamp(tau * mins[:, 1], max=1.0))
+            ap = torch.clamp(tau * mins[:, 0], max=1.0)
+            ad = torch.clamp(tau * mins[:, 1], max=1.0)
+            if has_soc:
+                aq_p = torch.where(rmask, _soc_step_len(sq, dsq), torch.inf)
+                aq_d = torch.where(rmask, _soc_step_len(zq, dzq), torch.inf)
+                ap = torch.minimum(ap, tau * aq_p.amin(-1))
+                ad = torch.minimum(ad, tau * aq_d.amin(-1))
+                # NT scaling assumes s and z move together: separate steps
+                # let a cone crash into its boundary and stall
+                ap = ad = torch.minimum(ap, ad)
+            return ap, ad
 
-        # predictor (affine)
-        bc, bf = newton_rhs(v_aff, pulled[..., 1:])
-        dth_a, duf_a, dX_a = solve(bc, bf)
-        ds_a, dlam_a = recover_steps(dth_a, duf_a, dX_a, v_aff)
-        ap_a, ad_a = step_len(s, ds_a, lam, dlam_a)
-        mu_aff = mu_of(s + ap_a[:, None] * ds_a, lam + ad_a[:, None] * dlam_a)
-        sigma = torch.clamp((mu_aff / torch.clamp(mu, min=1e-30)) ** 3, 0.0, 1.0)
-        sig_mu = torch.clamp(sigma * mu, min=0.0)
-        # corrector (same factorization)
-        r_c = torch.where(mask, s * lam + ds_a * dlam_a - sig_mu[:, None], 0.0)
-        v = torch.where(mask, (lam * r_p - r_c) / s, 0.0)
-        bc, bf = newton_rhs(v, _adjoint_flat(Af, Bf, x_rows(v)) if has_x else None)
+        def ahead(x, a, dx):
+            return x + a.reshape((Bn,) + (1,) * (x.ndim - 1)) * dx
+
+        lam2 = _soc_prod(lamq, lamq) if has_soc else None
+        if mehrotra:
+            # predictor (affine)
+            bc, bf, vq_a = newton_rhs(v1, pulled[..., 1:], lam2)
+            dth_a, duf_a, dX_a = solve(bc, bf)
+            ds_a, dlam_a, dsq_a, dzq_a = recover_steps(dth_a, duf_a, dX_a, v1, vq_a)
+            ap_a, ad_a = step_len(ds_a, dlam_a, dsq_a, dzq_a)
+            mu_aff = mu_of(ahead(s, ap_a, ds_a), ahead(lam, ad_a, dlam_a),
+                           ahead(sq, ap_a, dsq_a) if has_soc else sq,
+                           ahead(zq, ad_a, dzq_a) if has_soc else zq)
+            sigma = torch.clamp((mu_aff / torch.clamp(mu, min=1e-30)) ** 3, 0.0, 1.0)
+            sig_mu = torch.clamp(sigma * mu, min=mu_target)  # central-path floor
+            # corrector (same factorization)
+            r_c = torch.where(mask, s * lam + ds_a * dlam_a - sig_mu[:, None], 0.0)
+            v = torch.where(mask, (lam * r_p - r_c) / s, 0.0)
+            dq_c = None
+            if has_soc:
+                dq_c = lam2 + _soc_prod(_mv(Wqinv, dsq_a), _mv(Wq, dzq_a)) \
+                    - sig_mu[:, None, None] * e_soc
+            bc, bf, vq = newton_rhs(v, _adjoint_flat(Af, Bf, x_rows(v)) if has_x else None,
+                                    dq_c)
+        else:
+            # pure centering Newton on the perturbed KKT at mu_target
+            v = v1
+            bc, bf, vq = newton_rhs(v, pulled[..., 1:],
+                                    lam2 - mu_target * e_soc if has_soc else None)
         dth, duf, dX = solve(bc, bf)
-        ds, dlam = recover_steps(dth, duf, dX, v)
-        ap, ad = step_len(s, ds, lam, dlam)
+        ds, dlam, dsq, dzq = recover_steps(dth, duf, dX, v, vq)
+        ap, ad = step_len(ds, dlam, dsq, dzq)
 
-        th_n = theta + ap[:, None] * dth
-        uf_n = uf + ap[:, None, None] * duf
-        s_n = torch.where(mask, s + ap[:, None] * ds, 1.0)
-        lam_n = torch.where(mask, lam + ad[:, None] * dlam, 0.0)
-        mu_n = mu_of(s_n, lam_n)
+        th_n = ahead(theta, ap, dth)
+        uf_n = ahead(uf, ap, duf)
+        s_n = torch.where(mask, ahead(s, ap, ds), 1.0)
+        lam_n = torch.where(mask, ahead(lam, ad, dlam), 0.0)
+        if has_soc:
+            sq_n = torch.where(rmask[..., None], ahead(sq, ap, dsq), e_soc)
+            zq_n = torch.where(rmask[..., None], ahead(zq, ad, dzq), e_soc)
+        else:
+            sq_n, zq_n = sq, zq
+        mu_n = mu_of(s_n, lam_n, sq_n, zq_n)
 
         rp_inf = r_p.abs().amax(-1)
+        if has_soc:
+            rp_inf = torch.maximum(rp_inf, r_pq.abs().amax((-2, -1)))
         # full consensus (Nc = N) leaves the free block zero-sized
         gd_inf = torch.cat([gc, gf.reshape(Bn, -1)], -1).abs().amax(-1)
         step_bad = ~(torch.isfinite(mu_n) & torch.isfinite(th_n.sum(-1))
                      & torch.isfinite(uf_n.sum((-2, -1))))
-        now_done = (mu_n < tol) & (rp_inf < sqrt_tol) & (gd_inf < 1e3 * tol)
+        if has_soc:
+            # a missed boundary crossing leaves a cone point OUTSIDE its
+            # cone: an escape is a breakdown
+            step_bad = step_bad | (_soc_viol(sq_n, rmaskf) > 0) | (_soc_viol(zq_n, rmaskf) > 0)
+        mu_ok = mu_n < mu_ok_floor
+        if mu_target > 0:
+            # the products must also be CENTERED at mu_target (that is what
+            # makes the point the logbarrier solution)
+            center_err = torch.where(mask, (s_n * lam_n - mu_target).abs(), 0.0).amax(-1)
+            if has_soc:
+                center_err = torch.maximum(center_err, (rmaskf * (
+                    (sq_n * zq_n).sum(-1) - mu_target).abs()).amax(-1))
+            mu_ok = mu_ok & (center_err < 0.002 * mu_target + tol)
+        # with cones the dual accuracy is cancellation-limited by the NT
+        # scaling near the boundary: ~sqrt(tol)
+        gd_tol = sqrt_tol if has_soc else 1e3 * tol
+        now_done = mu_ok & (rp_inf < sqrt_tol) & (gd_inf < gd_tol)
         now_bad = step_bad | (mu_n > 1e12)
 
         frozen = done | now_bad
-        new = RIPMState(th_n, uf_n, s_n, lam_n, mu_n, false, ok, it_count, failed)
+        new = RIPMState(th_n, uf_n, s_n, lam_n, sq_n, zq_n, mu_n, false, ok, it_count,
+                        badc, failed)
         merged = RIPMState(*(lane_where(frozen, o, n) for n, o in zip(new, st)))
-        return merged._replace(done=done | now_done | now_bad, ok=ok | now_done,
-                               iters=it_count + 1,
-                               failed=failed | (now_bad & ~done & ~now_done))
+        if not has_soc:
+            return merged._replace(done=done | now_done | now_bad, ok=ok | now_done,
+                                   iters=it_count + 1,
+                                   failed=failed | (now_bad & ~done & ~now_done))
+        # convergence also needs the NEW primal point to be cone-feasible
+        now_done = now_done & (_soc_viol(cone_vals(th_n, uf_n), rmaskf) < sqrt_tol)
+        # the retry: keep the iterate on a bad step, count the breakdown (the
+        # next factor gets the boost) and shift the cone points inward (a
+        # crashed cone's scaling overflows: regularization alone cannot fix
+        # the iterate); the fourth breakdown in a row gives up
+        badc_n = torch.where(done, badc, torch.where(now_bad, badc + 1, 0)).to(badc.dtype)
+        give_up = badc_n >= 4
+        retry = now_bad & ~done
+        return merged._replace(
+            sq=lane_where(retry, _soc_shift(merged.sq), merged.sq),
+            zq=lane_where(retry, _soc_shift(merged.zq), merged.zq),
+            done=done | now_done | give_up, ok=ok | now_done, iters=it_count + 1,
+            badc=badc_n, failed=failed | (give_up & ~done & ~now_done))
 
     # the loop of `jax.vmap(lax.while_loop)`: runs while ANY lane's condition
     # holds; lanes whose own condition is false keep their state. One host
@@ -603,9 +772,19 @@ def riccati_ipm_core(
             break
         new = body(state)
         state = RIPMState(*(lane_where(active, n, o) for n, o in zip(new, state)))
+    if mu_target > 0:
+        # finish with pure centering steps: Mehrotra's second-order
+        # correction hunts mu -> 0 and wobbles around the mu_target point.
+        # Every lane counts these 10 steps, as the JAX core's fori_loop does
+        ok_main = state.ok
+        state = state._replace(done=state.done & ~state.ok, ok=false)
+        for _ in range(10):
+            state = body(state, mehrotra=False)
+        state = state._replace(failed=state.failed & ~ok_main, ok=state.ok | ok_main)
 
     stats = dict(mu=state.mu, iters=state.iters, converged=state.ok,
-                 failed=state.failed & ~state.ok, s=state.s, lam=state.lam)
+                 failed=state.failed & ~state.ok, s=state.s, lam=state.lam,
+                 sq=state.sq, zq=state.zq)
     return state.theta, state.uf, stats
 
 
@@ -634,22 +813,19 @@ def riccati_ipm_solve_scp(x0, f, fx, fu, X_prev, U_prev, Q, R, X_ref, U_ref,
                           slew_reg=None, slew_reg0=None, slew_um1=None,
                           x_l=None, x_u=None, u_soc_r=None,
                           ex_G=None, ex_h=None, **kw):
-    """One box-constrained SCP subproblem per lane via the stage-structured
-    IPM.
+    """One SCP subproblem per lane via the stage-structured IPM.
 
     Arrays (B, M, ...); bounds (B, M, N, udim) with the consensus stages
     taking particle 0's rows. Slew coupling (optional, (B, M) / (B, M, udim)
     tensors) enters via `riccati.augment_slew_stages`; the bounds and the
     IPM layout are in control space and unchanged. State boxes x_l/x_u
     (B, M, N, xdim) apply to the ORIGINAL state entries (the augmentation's
-    control-memory tail is unbounded). Returns (X, U, stats), stats with
-    theta and uf beside the core's."""
-    if u_soc_r is not None:
-        _unsupported("per-stage control-norm cones (u_soc_r)",
-                     "ROADMAP §1.7, after §1.4's SOC slice")
+    control-memory tail is unbounded). ``u_soc_r`` (B, M, N): per-stage
+    control-norm radii (+inf: no cone; the consensus stages take particle
+    0's). Returns (X, U, stats), stats with theta and uf beside the core's."""
     if ex_G is not None or ex_h is not None:
         _unsupported("linear extra rows (ex_G, ex_h)",
-                     "ROADMAP §1.7, with the host dispatcher §1.9")
+                     "ROADMAP §1.9, with the host dispatcher")
     Bn, M, N = f.shape[:3]
     xdim, udim = x0.shape[-1], U_prev.shape[-1]
     c, Qt, xt, Rt, ut = _scp_stage_terms(x0, f, fx, fu, X_prev, U_prev, Q, R,
@@ -665,6 +841,9 @@ def riccati_ipm_solve_scp(x0, f, fx, fu, X_prev, U_prev, Q, R, X_ref, U_ref,
     else:
         lo_c = torch.full((Bn, 1), -torch.inf, dtype=f.dtype, device=f.device)
         hi_c = -lo_c
+    if u_soc_r is not None:
+        r = u_soc_r.expand(Bn, M, N)
+        kw = dict(kw, soc_rc=r[:, 0, :Nc], soc_rf=r[:, :, Nc:])
     theta, uf, stats = riccati_ipm_core(
         x0s, c, A, B, Qt, xt, Rt, ut, lo_c, hi_c, ul[:, :, nc:], uu[:, :, nc:],
         Nc=Nc, x_lo=x_l, x_hi=x_u, **kw)

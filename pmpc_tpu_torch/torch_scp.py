@@ -5,11 +5,11 @@ solve -> recover) or ``method="riccati"`` (the O(N) stage sweeps of
 `solvers.riccati` / `solvers.riccati_ipm`, which never build the O(N^2)
 condensed map and carry slew coupling by state augmentation).
 
-Twin of ``pmpc_tpu/jax_scp.py`` for these two methods with control and
-state boxes. The JAX solver takes one (M, ...) problem and is batched with
-``jax.vmap``; this solver takes the batch itself, (B, M, ...) arrays, and
-every per-scenario quantity (iteration count, residual, done flag, AA
-window) is a (B, ...) tensor.
+Twin of ``pmpc_tpu/jax_scp.py`` for these two methods with control boxes,
+state boxes and per-stage control-norm cones. The JAX solver takes one
+(M, ...) problem and is batched with ``jax.vmap``; this solver takes the
+batch itself, (B, M, ...) arrays, and every per-scenario quantity (iteration
+count, residual, done flag, AA window) is a (B, ...) tensor.
 
 Usage:
     solver = build_scp_solver(dynamics, N=30, xdim=4, udim=2, M=32, Nc=5,
@@ -24,7 +24,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from .dynamics import linearize
-from .solvers.ipm import BoxBounds, ipm_core
+from .solvers.ipm import BoxBounds, ipm_core, layout_socs
 from .solvers.reduced import assemble_condensed, recover_XU, solve_eq
 from .solvers.riccati import riccati_consensus_solve
 from .solvers.riccati_ipm import riccati_ipm_solve_scp
@@ -52,17 +52,19 @@ class SCPData(NamedTuple):
     x_l: torch.Tensor  # (..., M, N, xdim)
     x_u: torch.Tensor  # (..., M, N, xdim)
     params: Any = None  # (..., M, P) per-particle dynamics parameters
-    u_soc_r: Any = None  # per-stage control-norm radii: not ported
+    u_soc_r: Any = None  # (..., M, N) per-stage control-norm radii (+inf: no cone)
 
 
 def make_scp_data(
     x0, Q, R,
     X_ref=None, U_ref=None, X_prev=None, U_prev=None,
     reg_x=1.0, reg_u=1e-2, slew_reg=0.0, slew_reg0=0.0, slew_um1=None,
-    u_l=None, u_u=None, x_l=None, x_u=None, params=None, dtype=None,
-    device=None,
+    u_l=None, u_u=None, x_l=None, x_u=None, params=None, u_soc_r=None,
+    dtype=None, device=None,
 ) -> SCPData:
-    """Constructor with reference-compatible defaults. Every field lands on
+    """Constructor with reference-compatible defaults. ``u_soc_r`` (radii of
+    the per-stage cones ||u_j|| <= r, broadcast to (..., M, N); +inf: no
+    cone) stays None when not given. Every field lands on
     ``device`` in ``dtype`` (that of ``Q`` when None). With ``device=None``
     the device is that of the first tensor among ``Q``, ``R``, ``x0``; when
     none of them is a tensor it is the card (`utils.default_device`, which
@@ -99,6 +101,7 @@ def make_scp_data(
         x_u=arr(x_u, lead + (N, xdim), torch.inf),
         params=None if params is None
         else torch.as_tensor(params, dtype=dt, device=dev),
+        u_soc_r=None if u_soc_r is None else arr(u_soc_r, lead + (N,)),
     )
 
 
@@ -146,7 +149,17 @@ def build_scp_solver(
     ``f(x, u, p (P,))`` when the data carries per-particle ``params``
     (B, M, P), which are mapped with the particles and not differentiated.
     ``has_u_bounds=False`` ignores the control bounds in the data; with no
-    bounds at all the subproblem is the unconstrained solve (`solve_eq`).
+    bounds and no cones the subproblem is the unconstrained solve
+    (`solve_eq`). ``has_u_soc=True`` adds the per-stage cones
+    ||u_j|| <= r_j of ``data.u_soc_r`` (the data must carry them; without
+    the flag they are ignored); the IPM warm tuple then carries the cone
+    slacks and duals (sq, zq) as its 5th and 6th entries.
+    ``ipm_gondzio`` (that many centrality correctors an IPM iteration, kept
+    where they lengthen the step; without cones), ``ipm_predictor=False``
+    (one Newton solve an IPM iteration, the LOQO centering rule) and
+    ``mu_target > 0`` (stop on the central path at that duality measure)
+    reach the condensed IPM; of them the Riccati IPM takes ``mu_target``
+    and refuses the other two.
     ``lin_cost_fn(X_prev, U_prev, data) -> (cx, cu)`` linearizes an extra
     cost at the current iterate; here it receives the batched (B, M, ...)
     tensors (the JAX solver hands it one (M, ...) problem) and its
@@ -177,8 +190,6 @@ def build_scp_solver(
     if method == "priccati":
         _unsupported("method='priccati' (the sweeps as associative scans)",
                      "ROADMAP §1.11: to be decided by measurement on the card")
-    if has_u_soc:
-        _unsupported("SOC cones", "ROADMAP §1.4")
     if relin_stale and method != "condensed":
         raise ValueError(
             "relin_stale (stale-Jacobian sub-iterations) is only supported "
@@ -189,17 +200,18 @@ def build_scp_solver(
         raise ValueError(
             "ipm_predictor=False is only supported with method='condensed' "
             "(the riccati IPM has no single-solve mode)")
+    if ipm_gondzio and method != "condensed":
+        # the stage-structured IPM has no Gondzio correctors (the JAX
+        # `build_scp_solver` drops the flag there silently; ROADMAP §3 F6)
+        raise ValueError("ipm_gondzio is only supported with method='condensed'")
     if relin_stale:
         _unsupported("relin_stale", "ROADMAP §1.11")
-    if ipm_gondzio or not ipm_predictor or mu_target > 0:
-        _unsupported("ipm_gondzio, ipm_predictor=False and mu_target > 0",
-                     "ROADMAP §1.4")
     if accel not in ("", "AA"):
         raise ValueError(f"unknown accel {accel!r} (use '' or 'AA')")
     Nc = Nc if Nc >= 0 else N
     if M == 1:
         Nc = 0  # single particle: consensus is a no-op; keep stage structure
-    has_bounds = has_u_bounds or has_x_bounds
+    has_bounds = has_u_bounds or has_x_bounds or has_u_soc
     AW = int(accel_window)
     nc, nx = Nc * udim, M * N * xdim
     riccati = method == "riccati"
@@ -254,7 +266,7 @@ def build_scp_solver(
                 iters=ipm_iters,
                 tol_exp=ipm_tol_exp if ipm_tol_exp is not None else (-8 if f64 else -6),
                 kappa=kappa if kappa is not None else (0.0 if f64 else 1e-7),
-                warm=warm, tol_dynamic=tol_dyn, tau=ipm_tau)
+                warm=warm, tol_dynamic=tol_dyn, tau=ipm_tau, mu_target=mu_target)
         if riccati:
             # O(N) stage-structured solve: no O(N^2) Ft, the consensus Schur
             # complement is a per-particle theta-quadratic sum
@@ -270,6 +282,8 @@ def build_scp_solver(
                 poison = torch.where(slew_present, torch.nan, 1.0).to(dt)[:, None, None, None]
             if has_bounds:
                 xbox_kw = dict(x_l=data.x_l, x_u=data.x_u) if has_x_bounds else {}
+                if has_u_soc:
+                    xbox_kw["u_soc_r"] = data.u_soc_r
                 u_l = data.u_l if has_u_bounds else torch.full_like(data.u_l, -torch.inf)
                 u_u = data.u_u if has_u_bounds else torch.full_like(data.u_u, torch.inf)
                 X, U, stats = riccati_ipm_solve_scp(
@@ -277,6 +291,7 @@ def build_scp_solver(
                     data.reg_x, data.reg_u, u_l, u_u, Nc=Nc, **ipm_kw, **slew_kw,
                     **xbox_kw)
                 warm_new = (stats["theta"], stats["uf"], stats["s"], stats["lam"]) \
+                    + ((stats["sq"], stats["zq"]) if has_u_soc else ()) \
                     if warm_start else warm
             else:
                 X, U = riccati_consensus_solve(
@@ -297,9 +312,14 @@ def build_scp_solver(
                                    lo_f=ul[:, :, nc:], hi_f=uu[:, :, nc:],
                                    lo_x=data.x_l.reshape(B, M, N * xdim),
                                    hi_x=data.x_u.reshape(B, M, N * xdim))
-                uc, uf, stats = ipm_core(cqp, bounds, has_u=has_u_bounds,
-                                         has_x=has_x_bounds, **ipm_kw)
-                warm_new = (uc, uf, stats["s"], stats["lam"]) if warm_start else warm
+                uc, uf, stats = ipm_core(
+                    cqp, bounds, has_u=has_u_bounds, has_x=has_x_bounds,
+                    socs=layout_socs(data.u_soc_r, Nc) if has_u_soc else None,
+                    has_soc=has_u_soc, gondzio=ipm_gondzio, predictor=ipm_predictor,
+                    **ipm_kw)
+                warm_new = (uc, uf, stats["s"], stats["lam"]) \
+                    + ((stats["sq"], stats["zq"]) if has_u_soc else ()) \
+                    if warm_start else warm
             else:
                 uc, uf = solve_eq(cqp)
                 warm_new = warm
@@ -372,6 +392,10 @@ def build_scp_solver(
                 uc_w = torch.zeros((B, nct), dtype=dt, device=dev)
                 uc_w[:, :nc] = Uflat[:, :, :nc].mean(1)
                 warm0 = (uc_w, Uflat[:, :, nc:], s_w, s_w)
+                if has_u_soc:  # the cones' slacks and duals at the unit point
+                    e0 = torch.zeros((B, Nc + M * (N - Nc), udim + 1), dtype=dt, device=dev)
+                    e0[..., 0] = 1.0
+                    warm0 = warm0 + (e0, e0)
         acc0 = None
         if accel:
             n_flat = M * N * (xdim + udim)
@@ -384,8 +408,8 @@ def build_scp_solver(
     def solver(data: SCPData, state=None):
         """``state``: the IPM warm tuple a previous call returned in
         ``info["solver_state"]`` (built with ``return_state=True``)."""
-        if data.u_soc_r is not None:
-            _unsupported("SOC radii (u_soc_r)", "ROADMAP §1.4")
+        if has_u_soc and data.u_soc_r is None:
+            raise ValueError("has_u_soc=True needs the cone radii data.u_soc_r")
         with matmul_precision_scope():
             B = data.x0.shape[0]
             dt, dev = data.Q.dtype, data.Q.device

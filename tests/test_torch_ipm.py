@@ -112,10 +112,14 @@ def test_unported_flags_raise():
     inf_c = torch.full((1, 2), torch.inf, dtype=torch.float64)
     inf_f = torch.full((1, 2, 6), torch.inf, dtype=torch.float64)
     bounds = tipm.BoxBounds(-inf_c, inf_c, -inf_f, inf_f)
-    for kw in (dict(has_soc=True), dict(gondzio=1),
-               dict(predictor=False), dict(mu_target=0.1), dict(has_ex=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # every flag of the JAX core is ported (tests/test_torch_soc.py,
+    # tests/test_torch_ipm_options.py); a flag without its data is refused
+    for kw, what in ((dict(has_soc=True), "socs"), (dict(has_ex=True), "extra rows")):
+        with pytest.raises(ValueError, match=what):
             tipm.ipm_core(cqp, bounds, **kw)
+    for kw in (dict(gondzio=1), dict(predictor=False), dict(mu_target=0.1)):
+        uc, uf, st = tipm.ipm_core(cqp, bounds, **kw)
+        assert torch.isfinite(uf).all() and st["converged"].all()
 
 
 def _solve_both_xbox(seed, has_u, warm_start):

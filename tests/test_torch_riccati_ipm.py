@@ -250,9 +250,13 @@ def test_unported_options_raise_naming_the_roadmap():
     p = problem(1, 2, 6)
     base = [tt(p[k]) for k in KEYS + ["reg_x", "reg_u"]]
     box = [tt(np.full(p["U_prev"].shape, v)) for v in (-0.5, 0.5)]
-    for kw in (dict(u_soc_r=torch.ones(B, 2, 6)), dict(mu_target=0.1),
-               dict(ex_G=torch.zeros(B, 1, 4), ex_h=torch.ones(B, 1))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tipm.riccati_ipm_solve_scp(*base, *box, Nc=2, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tipm.riccati_ipm_solve_scp(*base, *box, Nc=2, ex_G=torch.zeros(B, 1, 4),
+                                   ex_h=torch.ones(B, 1))
+    # the cones and the central-path stop are ported (tests/test_torch_soc.py,
+    # tests/test_torch_ipm_options.py)
+    for kw in (dict(u_soc_r=torch.ones(B, 2, 6)), dict(mu_target=0.1)):
+        X, U, st = tipm.riccati_ipm_solve_scp(*base, *box, Nc=2, **kw)
+        assert torch.isfinite(U).all() and st["converged"].all()
     with pytest.raises(NotImplementedError, match="ROADMAP §1.9"):
         tipm.riccati_ipm_solve_np()

@@ -99,12 +99,19 @@ def test_state_round_trip_and_unported_options():
     assert torch.isfinite(U2).all()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solver.init_carry(data)
-    for kw in (dict(method="priccati"), dict(has_u_soc=True), dict(relin_stale=1),
-               dict(ipm_gondzio=1), dict(ipm_predictor=False), dict(mu_target=0.1)):
+    for kw in (dict(method="priccati"), dict(relin_stale=1)):
         args = dict(N=6, xdim=4, udim=2, M=2, has_u_bounds=True)
         args.update(kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             torch_scp.build_scp_solver(dubins, **args)
+    # ported since (tests/test_torch_soc.py, tests/test_torch_ipm_options.py);
+    # cones need their radii in the data
+    for kw in (dict(has_u_soc=True), dict(ipm_gondzio=1), dict(ipm_predictor=False),
+               dict(mu_target=0.1)):
+        torch_scp.build_scp_solver(dubins, N=6, xdim=4, udim=2, M=2, has_u_bounds=True, **kw)
+    with pytest.raises(ValueError, match="u_soc_r"):
+        torch_scp.build_scp_solver(dubins, N=6, xdim=4, udim=2, M=2, Nc=1,
+                                   has_u_soc=True)(data)
 
 
 def _jax_stack(data, B, scale=0.02):
@@ -489,10 +496,9 @@ def test_riccati_gates():
     args = dict(N=6, xdim=4, udim=2, M=2, has_u_bounds=True)
     with pytest.raises(NotImplementedError, match="ROADMAP §1.11"):
         torch_scp.build_scp_solver(dubins, method="priccati", **args)
-    for kw in (dict(has_u_soc=True), dict(mu_target=0.1), dict(ipm_gondzio=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            torch_scp.build_scp_solver(dubins, method="riccati", **args, **kw)
-    for kw in (dict(relin_stale=1), dict(ipm_predictor=False)):
+    for kw in (dict(has_u_soc=True), dict(mu_target=0.1)):  # ported since
+        torch_scp.build_scp_solver(dubins, method="riccati", **args, **kw)
+    for kw in (dict(relin_stale=1), dict(ipm_predictor=False), dict(ipm_gondzio=1)):
         with pytest.raises(ValueError, match="only supported with method='condensed'"):
             torch_scp.build_scp_solver(dubins, method="riccati", **args, **kw)
     with pytest.raises(ValueError, match="unknown method"):
