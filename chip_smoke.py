@@ -64,7 +64,24 @@ reaches no Pallas kernel either): their launch counts must stay 0;
    subproblem in f64 (U within 1e-6; the rows' l x l Schur factor is K2);
    then the B=64 flagship with ``ipm_predictor=False`` and with
    ``ipm_gondzio=2``, f32: converged_frac and rate reported;
-then phase 9 once more for the shapes phases 10-16 launched, one JSON line
+17. the batched CVaR program (`flagship.cvar_batch`: B=64 problems of the
+   Dubins car, M=4, N=20, full consensus, k=3, f64, `conebatch.
+   solve_problems_cone`): ms per warm call beside the same call on the CPU,
+   converged count (gated at 0.95 B), SCP and IPM iterations; its Newton
+   matrix is 45 x 45, so K2 alone at (64, 45, 45) f64; the card against the
+   CPU on every problem's first SCP iteration (U to 1e-7, equal IPM counts;
+   the full calls of the first 4 problems reported beside the CPU's own
+   spread under a 1e-15 change of x0); lane 0's first subproblem
+   against a scipy oracle (1e-5); on every lane whose IPM converged, the
+   program's objective against the k-worst sum of the particle costs
+   computed in numpy (1e-6 relative);
+18. extras on the composed route (`flagship.extras_batch`: B=64, M=2, N=20,
+   Nc=5, box controls, a keep-in cone on every position, a soft bound
+   through an auxiliary slack, the terminal cross cost): K4 alone at
+   (64, 71, 71) f64, boxes and cones held to 1e-6, the card against the CPU
+   at B=4 (U to 1e-7); then squareplus smoothing under control cones
+   (nv = 210): no hand kernel, zero launches;
+then phase 9 once more for the shapes phases 10-18 launched, one JSON line
 for the kernels and, last, one JSON line for the run. Every solver phase sets
 the launch counts to 0 before its timed call and reads them after it.
 """
@@ -78,11 +95,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from pmpc_tpu_torch.conebatch import _canon_problem, solve_problems_cone
 from pmpc_tpu_torch.dynamics import dynamics_violation, linearize
-from pmpc_tpu_torch.flagship import (HEADLINE_KW, SOC_R3, baseline_config, dubins,
+from pmpc_tpu_torch.flagship import (HEADLINE_KW, KEEP_IN_C, KEEP_IN_R, SOC_R3,
+                                     baseline_config, cvar_batch, dubins, extras_batch,
                                      flagship, long_horizon, podscale, probe, stack_varied)
 from pmpc_tpu_torch.ops import chol_inv
 from pmpc_tpu_torch.solvers import ipm
+from pmpc_tpu_torch.solvers.compose import COST_ANCHOR_EPS, composed_solve_batch_device
 from pmpc_tpu_torch.solvers.reduced import assemble_condensed
 from pmpc_tpu_torch.utils import matmul_precision_scope
 
@@ -112,10 +132,14 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # further shapes the phases launch: (adds a diagonal, batch, n)
 OTHER_SHAPES = ((True, 8, 50), (False, 1, 10), (False, 32, 10), (False, 2048, 50),
-                (False, 512, 40), (False, 128, 50), (False, 4, 10))
+                (False, 512, 40), (False, 128, 50), (False, 4, 10), (False, 64, 45),
+                (False, 64, 71))
 K2_WIDE = (2048, 50)  # K2's second timed shape, from the state-box phase
 K2_CONE = (512, 40)  # K2's third timed shape: config 3's cone Newton blocks
+K2_CVAR = (64, 45)  # K2 in f64: the CVaR program's Newton matrix (phase 17)
+K4_EXTRAS = (64, 71)  # K4 in f64: the extras program's (phase 18)
 B_CONFIG3 = 512
+B_CONE, M_CVAR, K_CVAR, B_CHECK = 64, 4, 3, 4  # phases 17-18
 FAILED = []
 CHECKED = set()  # (adds a diagonal, batch, n, dtype) held against plain
 
@@ -238,8 +262,9 @@ def phase_kernels(dev, card):
     for diag, B, n in OTHER_SHAPES:
         for dtype in (torch.float32, torch.float64):
             err = check(diag, *spd_inputs(B, n, dtype, dev))
-            if (B, n) in (K2_WIDE, K2_CONE):
-                other[(B, n, dtype)] = {"shape": [B, n, n], "max_abs_err": err}
+            if (B, n) in (K2_WIDE, K2_CONE, K2_CVAR, K4_EXTRAS):
+                other[(B, n, dtype)] = {"shape": [B, n, n], "dtype": str(dtype)[6:],
+                                        "max_abs_err": err}
     for n in (1, 7, 8, 9, 33, 63, 64, 65, 72, 95, 96):
         for dtype in (torch.float32, torch.float64):
             A, w = spd_inputs(37, n, dtype, dev, seed=n)
@@ -289,12 +314,16 @@ def phase_kernels(dev, card):
     # time at the main-path shapes, f32 (K2's cone shape in f64 too): plain,
     # library, kernel, kernel, library, plain
     f32, f64 = torch.float32, torch.float64
-    results["inv_cholesky"]["other_shapes"] = [other[K2_WIDE + (f32,)], other[K2_CONE + (f32,)]]
+    results["inv_cholesky"]["other_shapes"] = [other[K2_WIDE + (f32,)], other[K2_CONE + (f32,)],
+                                               other[K2_CVAR + (f64,)]]
+    results["inv_cholesky_big"]["other_shapes"] = [other[K4_EXTRAS + (f64,)]]
     timed = [(name, diag, B, n, f32, results[name])
              for name, (_, diag, (B, n), _) in KERNELS.items()]
     timed[2:2] = [("inv_cholesky", False, *K2_WIDE, f32, other[K2_WIDE + (f32,)]),
                   ("inv_cholesky", False, *K2_CONE, f32, other[K2_CONE + (f32,)]),
-                  ("inv_cholesky", False, *K2_CONE, f64, other[K2_CONE + (f64,)])]
+                  ("inv_cholesky", False, *K2_CONE, f64, other[K2_CONE + (f64,)]),
+                  ("inv_cholesky", False, *K2_CVAR, f64, other[K2_CVAR + (f64,)])]
+    timed.append(("inv_cholesky_big", False, *K4_EXTRAS, f64, other[K4_EXTRAS + (f64,)]))
     for name, diag, B, n, dtype, r in timed:
         A, w = spd_inputs(B, n, dtype, dev)
         fns = {"plain": lambda: run(diag, A, w, plain=True),
@@ -715,6 +744,224 @@ def phase_extra_rows(dev, card):
                 f"[16] flagship with {opt} launches {launches}: expected K1 and K2")
 
 
+def cone_call(problems, dev, stats=None):
+    """(results, seconds, launches) of one `solve_problems_cone` call, the
+    launch counts reset before it and read after it."""
+    chol_inv.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = solve_problems_cone(problems, device=dev, stats=stats)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(chol_inv.LAUNCHES)
+
+
+def stack_U(out):
+    """(B, M, N, udim) controls of a call's results, NaN where a problem failed."""
+    shape = next(U.shape for _, U, _ in out if U is not None)
+    return np.stack([np.full(shape, np.nan) if U is None else U for _, U, _ in out])
+
+
+def first_subproblem(problems, dev):
+    """The (B, M, ...) tensors of every problem's first SCP subproblem: the
+    dynamics linearized at the start (X_prev = X_ref = 0, U_prev = 0, as the
+    SCP loop starts), and its numpy copy."""
+    cps = [_canon_problem(p) for p in problems]
+    keys = ("x0", "Q", "R", "X_ref", "U_ref", "X_prev", "U_prev", "slew_um1")
+    probs = {k: torch.from_numpy(np.stack([cp[k] for cp in cps])).to(dev) for k in keys}
+    for k in ("reg_x", "reg_u", "slew_reg", "slew_reg0"):
+        probs[k] = torch.from_numpy(np.stack([np.full(cps[0]["M"], cp[k]) for cp in cps])).to(dev)
+    x_at = torch.cat([probs["x0"][:, :, None], probs["X_prev"][:, :, :-1]], 2)
+    f, fx, fu = linearize(dubins, x_at, probs["U_prev"])
+    probs.update(f=f, fx=fx, fu=fu)
+    return probs, {k: v.cpu().numpy() for k, v in probs.items()}
+
+
+def particle_costs(p, U):
+    """J_i(U) of every particle of every problem in numpy (the rollout and
+    cost of tests/test_cvar.py::_particle_cost): p the numpy subproblem
+    (B, M, ...), U (B, M, N, udim) -> (B, M)."""
+    B, M, N, xdim = p["f"].shape
+    xlin = np.concatenate([p["x0"][:, :, None], p["X_prev"][:, :, :-1]], 2)
+    x, X = p["x0"], []
+    for j in range(N):
+        x = p["f"][:, :, j] + np.einsum("bmij,bmj->bmi", p["fx"][:, :, j], x - xlin[:, :, j]) \
+            + np.einsum("bmij,bmj->bmi", p["fu"][:, :, j], U[:, :, j] - p["U_prev"][:, :, j])
+        X.append(x)
+    X = np.stack(X, 2)
+    dX, dU = X - p["X_ref"], U - p["U_ref"]
+    J = 0.5 * np.einsum("bmni,bmnij,bmnj->bm", dX, p["Q"], dX)
+    J += 0.5 * np.einsum("bmni,bmnij,bmnj->bm", dU, p["R"], dU)
+    J += 0.5 * p["reg_x"] * ((X - p["X_prev"]) ** 2).sum((2, 3))
+    return J + 0.5 * p["reg_u"] * ((U - p["U_prev"]) ** 2).sum((2, 3))
+
+
+def cvar_oracle(p, b, k, eps=COST_ANCHOR_EPS):
+    """Lane b's first subproblem solved by scipy's SLSQP over the epigraph
+    v = (u, y, t): min (1+eps) sum y + (1-eps) k t + 0.5e-8 sigma |v|^2 s.t.
+    J_i(u) <= y_i + t, y >= 0, u the shared controls (full consensus). The
+    last term is the program's own regularization P = 1e-8 I under its
+    objective scale sigma = max(1, mean_i J_i(0)) (``compose.py``, both
+    packages): without it the optimum moves ~1e-4 in u on this instance.
+    J_i is quadratic in u: its Hessian and gradient come from numpy
+    rollouts of unit controls."""
+    from scipy.optimize import minimize
+
+    _, M, N, udim = p["U_prev"].shape
+    n = N * udim
+    E = np.eye(n)
+    # J_i at 0, at every e_i and at every e_i + e_j, in one batched rollout
+    pts = np.concatenate([np.zeros((1, n)), E, (E[:, None] + E[None]).reshape(n * n, n)])
+    many = {key: np.broadcast_to(v[b:b + 1], (len(pts),) + v.shape[1:]) for key, v in p.items()}
+    Js = particle_costs(many, np.broadcast_to(pts.reshape(-1, 1, N, udim),
+                                              (len(pts), M, N, udim)))
+    c0, Jp, Jpq = Js[0], Js[1:n + 1], Js[n + 1:].reshape(n, n, M)
+    H = Jpq - Jp[:, None] - Jp[None] + c0  # e_i'H e_j
+    g = Jp - c0 - 0.5 * np.einsum("iim->im", H)
+    J = lambda u: 0.5 * np.einsum("i,ijm,j->m", u, H, u) + u @ g + c0
+    dJ = lambda u: np.einsum("ijm,j->im", H, u) + g
+    y0 = J(np.zeros(n))
+    t0 = np.sort(y0)[-k]
+    v0 = np.concatenate([np.zeros(n), np.maximum(y0 - t0, 0.0) + 1e-3, [t0]])
+    obj = np.concatenate([np.zeros(n), np.full(M, 1.0 + eps), [(1.0 - eps) * k]])
+    cons = [dict(type="ineq", fun=lambda v: v[n:n + M] + v[-1] - J(v[:n]),
+                 jac=lambda v: np.concatenate([-dJ(v[:n]).T, np.eye(M), np.ones((M, 1))], 1)),
+            dict(type="ineq", fun=lambda v: v[n:n + M],
+                 jac=lambda v: np.concatenate([np.zeros((M, n)), np.eye(M),
+                                               np.zeros((M, 1))], 1))]
+    reg = 1e-8 * max(1.0, float(np.abs(c0).mean()))
+    res = minimize(lambda v: obj @ v + 0.5 * reg * v @ v, v0, jac=lambda v: obj + reg * v,
+                   constraints=cons, method="SLSQP", options=dict(maxiter=2000, ftol=1e-14))
+    return res.x[:n].reshape(N, udim), res
+
+
+def phase_cvar(dev, card):
+    """The batched CVaR program on the card: K2 alone at (64, 45, 45) f64."""
+    probs = cvar_batch(B_CONE, M=M_CVAR, k=K_CVAR)
+    solve_problems_cone(probs[:B_CHECK], device=dev)  # warm the allocator
+    stats = {}
+    out, dt, launches = cone_call(probs, dev, stats)
+    U = stack_U(out)
+    conv = np.array([d is not None and d["converged"] for _, _, d in out])
+    its = stats["ipm_iters"]  # (SCP iterations, B)
+    per_scp = its.max(1)
+    print(f"[17] batched CVaR B={B_CONE} M={M_CVAR} N=20 full consensus k={K_CVAR} f64 on the "
+          f"card: {dt * 1e3:.1f} ms/call, converged {int(conv.sum())} of {B_CONE}, SCP "
+          f"iterations {out[0][2]['iters'] if out[0][2] else None}, batched IPM iterations per "
+          f"SCP iteration median {float(np.median(per_scp))} max {int(per_scp.max())} "
+          f"({int(per_scp.sum())} in all) [{card}]; launches {launches}")
+    require(conv.sum() >= 0.95 * B_CONE, f"[17] converged {int(conv.sum())} < 0.95 x {B_CONE}")
+    require(np.isfinite(U[conv]).all() and U.shape == (B_CONE, M_CVAR, 20, 2),
+            "[17] output is not finite or has the wrong shape")
+    require(np.ptp(U[conv], axis=1).max() < 1e-8, "[17] full consensus is broken")
+    require(only_launched(launches, ("inv_cholesky",))
+            and ("inv_cholesky", B_CONE, 45, torch.float64) in chol_inv.SHAPES,
+            f"[17] launches {launches}: expected K2 at ({B_CONE}, 45, 45) f64 only")
+    cpu = torch.device("cpu")
+    out_c, dt_c, _ = cone_call(probs, cpu)
+    print(f"    the same call on the host CPU: {dt_c * 1e3:.1f} ms/call, converged "
+          f"{sum(d is not None and d['converged'] for _, _, d in out_c)} of {B_CONE} "
+          f"(card {dt * 1e3:.1f} ms: {dt_c / dt:.2f}x) [{card}]")
+    # the card against the CPU. The SCP loop amplifies rounding: a corrector
+    # or step choice that flips on the last bit moves an iterate by ~1e-6
+    # (a 1e-15 relative change of x0 does so on the CPU alone), so the full
+    # call's U is set by its inputs to ~1e-7 only. Held to 1e-7 with equal
+    # IPM counts: every problem's first SCP iteration (one cone solve each);
+    # reported: the first B_CHECK problems' full calls, beside the CPU's own
+    # spread under that change of x0
+    first = [dict(p, max_it=1) for p in probs]
+    st_g, st_c = {}, {}
+    out1, _, _ = cone_call(first, dev, st_g)
+    out1_c, _, _ = cone_call(first, cpu, st_c)
+    err1 = np.abs(stack_U(out1) - stack_U(out1_c)).max()
+    same = np.array_equal(st_g["ipm_iters"], st_c["ipm_iters"])
+    out4, _, _ = cone_call(probs[:B_CHECK], dev)
+    err = np.abs(stack_U(out4) - stack_U(out_c[:B_CHECK])).max()
+    rng = np.random.default_rng(0)
+    nudged = [dict(p, x0=p["x0"] * (1 + 1e-15 * rng.normal(size=p["x0"].shape)))
+              for p in probs[:B_CHECK]]
+    spread = np.abs(stack_U(cone_call(nudged, cpu)[0]) - stack_U(out_c[:B_CHECK])).max()
+    print(f"    card against the CPU, first SCP iteration of all {B_CONE} problems: |dU|_inf = "
+          f"{err1:.3e} (tol 1e-7), IPM counts equal: {same}; full calls, card B={B_CHECK} "
+          f"against the CPU's first {B_CHECK} problems: {err:.3e}, card B={B_CONE} lanes "
+          f"0-{B_CHECK - 1}: {np.abs(U[:B_CHECK] - stack_U(out_c[:B_CHECK])).max():.3e}, the "
+          f"CPU against itself with x0 (1 + 1e-15 N(0, 1)): {spread:.3e} (reported)")
+    require(err1 <= 1e-7 and same,
+            f"[17] first SCP iteration: card and CPU differ by {err1:.3e} (IPM counts equal: "
+            f"{same})")
+    # the first subproblem of every lane, solved tight
+    probs_t, p_np = first_subproblem(probs, dev)
+    X1, U1, aux, st, _ = composed_solve_batch_device(
+        probs_t, {}, (), {}, (20, 2, 4), (), "", 1.0, 1.0, Nc=20, k=float(K_CVAR),
+        eps=COST_ANCHOR_EPS, has_cvar=True, iters=100, tol_exp=-10, kappa=1e-12)
+    U1, aux, ok = U1.cpu().numpy(), aux.cpu().numpy(), st["converged"].cpu().numpy()
+    U_o, res = cvar_oracle(p_np, 0, K_CVAR)
+    err_o = np.abs(U1[0, 0] - U_o).max()
+    J = particle_costs(p_np, U1)  # (B, M)
+    Js = np.sort(J, axis=1)[:, ::-1]
+    obj = (1 + COST_ANCHOR_EPS) * aux[:, :M_CVAR].sum(1) + (1 - COST_ANCHOR_EPS) * K_CVAR \
+        * aux[:, M_CVAR]
+    ident = (1 + COST_ANCHOR_EPS) * Js[:, :K_CVAR].sum(1) \
+        - 2 * COST_ANCHOR_EPS * K_CVAR * Js[:, K_CVAR - 1]
+    rel = np.abs(obj - ident) / np.abs(ident)
+    print(f"    first subproblem, lane 0 against scipy SLSQP on the epigraph (status "
+          f"{res.status}): |U - U_oracle|_inf = {err_o:.3e} (tol 1e-5); the program's "
+          f"objective against (1+eps) S_k - 2 eps k J_(k) of the numpy particle costs on "
+          f"{int(ok.sum())} converged lanes: max rel {rel[ok].max():.3e} (tol 1e-6)")
+    require(res.success and err_o <= 1e-5,
+            f"[17] lane 0 is {err_o:.3e} from the scipy oracle (status {res.status})")
+    require(ok.sum() >= 0.95 * B_CONE and rel[ok].max() <= 1e-6,
+            "[17] the k-worst identity fails on a converged lane")
+    return launches
+
+
+def phase_extras(dev, card):
+    """Extras on the composed route: K4 alone at (64, 71, 71) f64; then
+    squareplus under control cones, past every hand kernel."""
+    probs = extras_batch(B_CONE)
+    solve_problems_cone(probs[:B_CHECK], device=dev)
+    stats = {}
+    out, dt, launches = cone_call(probs, dev, stats)
+    U = stack_U(out)
+    ok = np.array([d is not None for _, _, d in out])
+    conv = np.array([d is not None and d["converged"] for _, _, d in out])
+    X = np.stack([X for X, _, _ in out if X is not None])
+    dist = np.linalg.norm(X[:, :, 1:, :2] - np.array(KEEP_IN_C), axis=-1)
+    print(f"[18] extras B={B_CONE} M=2 N=20 Nc=5 (box, keep-in cone on every position, soft "
+          f"bound through an aux slack, Hf) f64: {dt * 1e3:.1f} ms/call, converged "
+          f"{int(conv.sum())} of {B_CONE}, SCP iterations {out[0][2]['iters'] if ok[0] else None}"
+          f", batched IPM iterations {int(stats['ipm_iters'].max(1).sum())} [{card}]; launches "
+          f"{launches}")
+    print(f"    max |u| {np.nanmax(np.abs(U)):.9f}, max distance - radius "
+          f"{(dist - KEEP_IN_R).max():.3e}; the keep-in cone binds (within 1e-6) at "
+          f"{int((dist > KEEP_IN_R - 1e-6).sum())} of {dist.size} (lane, particle, stage)")
+    require(conv.sum() >= 0.95 * B_CONE, f"[18] converged {int(conv.sum())} < 0.95 x {B_CONE}")
+    require(np.nanmax(np.abs(U)) <= 1 + 1e-6, "[18] the control box is violated")
+    require((dist - KEEP_IN_R).max() <= 1e-6, "[18] a keep-in cone is violated")
+    require((dist > KEEP_IN_R - 1e-6).any(), "[18] the keep-in cone binds nowhere")
+    require(only_launched(launches, ("inv_cholesky_big",))
+            and ("inv_cholesky_big", B_CONE, 71, torch.float64) in chol_inv.SHAPES,
+            f"[18] launches {launches}: expected K4 at ({B_CONE}, 71, 71) f64 only")
+    out4, _, _ = cone_call(probs[:B_CHECK], dev)
+    out_c, dt_c, _ = cone_call(probs[:B_CHECK], torch.device("cpu"))
+    err = np.abs(stack_U(out4) - stack_U(out_c)).max()
+    print(f"    card B={B_CHECK} against the CPU: |dU|_inf = {err:.3e} (tol 1e-7)")
+    require(err <= 1e-7, f"[18] card and CPU differ by {err:.3e} > 1e-7")
+    sq = extras_batch(B_CONE, squareplus=True)
+    solve_problems_cone(sq[:B_CHECK], device=dev)
+    out_s, dt_s, launches_s = cone_call(sq, dev)
+    conv_s = sum(d is not None and d["converged"] for _, _, d in out_s)
+    U_s = stack_U(out_s)
+    print(f"[18] squareplus-smoothed boxes under ||u_j|| <= {SOC_R3}, B={B_CONE} M=2 N=20 Nc=5 "
+          f"f64 (nv = 210, the library's factor): {dt_s * 1e3:.1f} ms/call, converged {conv_s} "
+          f"of {B_CONE}, max ||u_j|| {np.nanmax(np.linalg.norm(U_s, axis=-1)):.9f} [{card}]; "
+          f"launches {launches_s}")
+    require(only_launched(launches_s, ()), f"[18] squareplus launched {launches_s}")
+    require(np.nanmax(np.linalg.norm(U_s, axis=-1)) <= SOC_R3 + 1e-6,
+            "[18] squareplus: the control cone is violated")
+    require(conv_s >= 0.95 * B_CONE, f"[18] squareplus converged {conv_s} < 0.95 x {B_CONE}")
+    return launches
+
+
 def main():
     card = phase_card()
     dev = torch.device("cuda", 0)
@@ -737,11 +984,15 @@ def main():
         config3 = phase_config3(dev, card)
         phase_soc_agrees(dev, card)
         phase_extra_rows(dev, card)
+        cvar = phase_cvar(dev, card)
+        extras = phase_extras(dev, card)
         phase_launched_shapes(dev)
     # the state-box phase launches K2 twice per IPM iteration, once at each shape
-    wide, cone = kern["inv_cholesky"]["other_shapes"]
+    wide, cone, cvar_shape = kern["inv_cholesky"]["other_shapes"]
     wide["launches"] = launches["state_box"]["inv_cholesky"] // 2
     cone["launches"] = config3["inv_cholesky"]
+    cvar_shape["launches"] = cvar["inv_cholesky"]
+    kern["inv_cholesky_big"]["other_shapes"][0]["launches"] = extras["inv_cholesky_big"]
     for name, (_, _, _, path) in KERNELS.items():
         require(launches[path][name] > 0, f"the {path} path never launched {name}")
     if FAILED:

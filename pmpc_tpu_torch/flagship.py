@@ -1,12 +1,16 @@
 """The headline program, the accuracy-probe configuration, the BASELINE.json
-measurement configs 1-5 and the long-horizon configuration, in torch.
+measurement configs 1-5, the long-horizon configuration and the batched cone
+programs, in torch.
 
 Twins of ``__graft_entry__._flagship``/``_dubins``, ``bench._stack_varied``,
-``benchmarks/accuracy_probe.build``, ``benchmarks/configs.py`` and
-``benchmarks/long_horizon_bench.py``: the same
-numpy seeds, so both packages build the same instances. Every function here puts
-its data on the card unless the caller names a device (``device=None``
-reaches `utils.default_device` through `make_scp_data`).
+``benchmarks/accuracy_probe.build``, ``benchmarks/configs.py``,
+``benchmarks/long_horizon_bench.py`` and the batched cells of
+``benchmarks/bench_cvar_extras.py``: the same numpy seeds, so both packages
+build the same instances. Every function here puts its data on the card
+unless the caller names a device (``device=None`` reaches
+`utils.default_device` through `make_scp_data`); the cone batches are
+problem dicts of numpy arrays for `conebatch.solve_problems_cone`, which
+takes the device.
 """
 
 from __future__ import annotations
@@ -206,3 +210,69 @@ def probe(dtype=torch.float64, device=None):
         ipm_tol_exp=-9 if dtype == torch.float64 else -6)
     data = _instance(_x0_seed0(M, xdim, dtype), N, udim, dtype, device)
     return solver, SCPData(*(None if a is None else a[None] for a in data))
+
+
+def _cone_problem(seed, M, N, max_it, res_tol, **extra):
+    """One problem dict of the batched cone cells: the Dubins car under
+    ``dynamics``, M particles with x0 = ones + 0.05 N(0, 1) from ``seed``, Q =
+    I, R = 1e-2 I (``bench_cvar_extras.py:120-128``)."""
+    xdim, udim = 4, 2
+    rng = np.random.default_rng(seed)
+    return dict(dynamics=dubins, Q=np.tile(np.eye(xdim), (M, N, 1, 1)),
+                R=np.tile(1e-2 * np.eye(udim), (M, N, 1, 1)),
+                x0=np.ones((M, xdim)) + 0.05 * rng.normal(size=(M, xdim)),
+                max_it=max_it, res_tol=res_tol, **extra)
+
+
+def cvar_batch(B=64, M=4, N=20, k=3, max_it=40, res_tol=1e-3, **settings):
+    """``bench_cvar_extras.py``'s converging batched CVaR cell
+    (``batched_cvar_k3_fullcons_B64_M4_tol1e-3``, ``:165-178``): B problems,
+    problem i from seed i, the k-worst objective over M particles with full
+    consensus (Nc = N), no bounds. Its program has nv = N udim + M + 1 (45 at
+    the defaults: K2) and M epigraph cones of size N udim + 2 (the J-gram)."""
+    return [_cone_problem(i, M, N, max_it, res_tol, solver_settings=dict(k=k, **settings))
+            for i in range(B)]
+
+
+KEEP_IN_C, KEEP_IN_R = (1.2, 1.2), 1.0  # the extras cell's keep-in disk: binds late
+SOFT_PX, SOFT_COST = 0.2, 10.0  # px_N - s <= SOFT_PX, s >= 0, cost SOFT_COST s
+
+
+def keep_in_extras(M, N, Nc, xdim=4, udim=2):
+    """One ``extra_cstrs`` tuple over the full layout [u_cons; u_free; x]:
+    a keep-in cone ||(px, py) - KEEP_IN_C|| <= KEEP_IN_R on every particle's
+    position at every stage (M N cones of size 3 that touch states, so the
+    stage-cone detection declines them), and a soft bound on particle 0's
+    px at stage N through one auxiliary slack s of cost SOFT_COST: the rows
+    px_N - s <= SOFT_PX and -s <= 0."""
+    nu = Nc * udim + M * (N - Nc) * udim
+    n_full = nu + M * N * xdim
+    rows = 2 + 3 * M * N
+    G, h, G_r = np.zeros((rows, n_full)), np.zeros(rows), np.zeros((rows, 1))
+    G[0, nu + (N - 1) * xdim], h[0] = 1.0, SOFT_PX
+    G_r[0, 0] = G_r[1, 0] = -1.0
+    for i in range(M):
+        for j in range(N):
+            r0, x = 2 + 3 * (i * N + j), nu + (i * N + j) * xdim
+            h[r0:r0 + 3] = (KEEP_IN_R, -KEEP_IN_C[0], -KEEP_IN_C[1])
+            G[r0 + 1, x], G[r0 + 2, x + 1] = -1.0, -1.0
+    return (2, [3] * (M * N), 0, G, G_r, h, np.zeros(n_full), np.array([SOFT_COST]))
+
+
+def extras_batch(B=64, M=2, N=20, Nc=5, squareplus=False, max_it=40, res_tol=1e-3,
+                 **settings):
+    """The composed extras cell: B problems as `cvar_batch` seeds them, box
+    controls +-1, consensus over the first Nc stages. By default the
+    `keep_in_extras` tuple and the terminal cross cost Hf = 0.1 I over the
+    stacked final states: nv = Nc udim + M (N - Nc) udim + 1 (71 at the
+    defaults: K4). ``squareplus=True`` instead smooths the boxes
+    (``smooth_cstr="squareplus"``) under the cones ||u_j|| <= 0.9: a
+    composed program of nv = 3 (Nc udim + M (N - Nc) udim) (210: past every
+    hand kernel)."""
+    box = dict(u_l=-np.ones((M, N, 2)), u_u=np.ones((M, N, 2)))
+    if squareplus:
+        ss = dict(Nc=Nc, smooth_cstr="squareplus", u_soc_r=np.full((M, N), SOC_R3))
+    else:
+        ss = dict(Nc=Nc, extra_cstrs=[keep_in_extras(M, N, Nc)], Hf=0.1 * np.eye(M * 4))
+    return [_cone_problem(i, M, N, max_it, res_tol, solver_settings=dict(ss, **settings),
+                          **box) for i in range(B)]

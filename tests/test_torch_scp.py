@@ -543,7 +543,10 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
     assert "pmpc_tpu_torch.torch_scp" in mods and "pmpc_tpu_torch.ops.chol_inv" in mods
     assert {"pmpc_tpu_torch.solvers.riccati", "pmpc_tpu_torch.solvers.riccati_ipm",
-            "pmpc_tpu_torch.flagship", "pmpc_tpu_torch.profile_call"} <= set(mods)
+            "pmpc_tpu_torch.flagship", "pmpc_tpu_torch.profile_call",
+            "pmpc_tpu_torch.solvers.coneipm", "pmpc_tpu_torch.solvers.compose",
+            "pmpc_tpu_torch.solvers.extras", "pmpc_tpu_torch.solvers.cvar",
+            "pmpc_tpu_torch.conebatch", "pmpc_tpu_torch.convert"} <= set(mods)
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
@@ -554,6 +557,7 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
             names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom):
             names.append(node.module or "")
-    assert "pmpc_tpu_torch.flagship" in names
+    assert {"pmpc_tpu_torch.flagship", "pmpc_tpu_torch.conebatch",
+            "pmpc_tpu_torch.solvers.compose"} <= set(names)
     top = {n.split(".")[0] for n in names}
     assert not top & {"jax", "jaxlib", "pmpc_tpu", "bench", "__graft_entry__"}

@@ -385,3 +385,56 @@ def test_warm_tuple_with_cone_duals_through_convert():
     assert (U3.norm(dim=-1) <= 0.5 + 1e-6).all()
     with pytest.raises(ValueError, match="4 or 6"):
         warm_from_numpy(state[:5], "cpu", torch.float64)
+
+
+# ---- F7: config 3 in f32, the lanes whose IPM gives up -----------------------
+
+F7_LANES = [79, 125, 160, 256, 395, 452]
+
+
+def test_f7_config3_f32_give_ups_are_shared_and_tau_095_clears_them():
+    """ROADMAP §3 F7. BASELINE config 3 in f32 (B=512) cut to six lanes:
+    256 and 452, where the port's condensed route gave up on the card and
+    on the CPU, and 79, 125, 160 and 395, where `jax.vmap` of the JAX fused
+    solver's Riccati route (the port's cone semantics, F5) gives up on the
+    CPU. At the default fraction to the boundary (0.99) a lane gives up
+    when one Mehrotra step at mu ~ 1e-6 lands within f32 rounding of a cone
+    wall (mu jumps, then cone escapes and non-finite steps: four
+    breakdowns); which lanes do so follows the last bit of each package's
+    arithmetic, so those outcomes are printed, not held. At
+    ``ipm_tau=0.95`` every lane converges on all three routes, with the
+    same SCP iteration counts on this CPU (held to one iteration: f32
+    residuals that end near res_tol may round either way elsewhere)."""
+    import __graft_entry__ as ge
+
+    N, xdim = 20, 4
+    f32 = np.float32
+    d = jmake(np.ones((1, xdim), f32), np.tile(np.eye(xdim, dtype=f32), (1, N, 1, 1)),
+              np.tile((1e-2 * np.eye(UDIM)).astype(f32), (1, N, 1, 1)), reg_x=1.0, reg_u=0.1,
+              u_l=-np.ones((1, N, UDIM), f32), u_u=np.ones((1, N, UDIM), f32),
+              u_soc_r=np.full((1, N), SOC_R3, f32))
+    stack = jax.tree.map(lambda a: jnp.broadcast_to(a[None], (512,) + a.shape), d)
+    x0 = np.asarray(stack.x0) + 0.02 * np.random.default_rng(1).normal(
+        size=stack.x0.shape).astype(f32)  # `stack_varied(data, 512, scale=0.02)`
+    cut = jax.tree.map(lambda a: a[np.array(F7_LANES)], stack._replace(x0=jnp.asarray(x0)))
+    t_data = scp_data_from_numpy(cut, "cpu", torch.float32)
+    for tau in (None, 0.95):
+        solver = jbuild(ge._dubins, N=N, xdim=xdim, udim=UDIM, M=1, Nc=0, max_it=25,
+                        res_tol=1e-3, accel="AA", has_u_bounds=True, has_u_soc=True,
+                        method="riccati", ipm_tau=tau)
+        _, _, info_r = jax.vmap(solver)(cut)
+        outs = {"JAX riccati": (np.asarray(info_r["converged"]), np.asarray(info_r["iters"]))}
+        for method in ("condensed", "riccati"):
+            s, _, _ = baseline_config(3, torch.float32, device="cpu", method=method, ipm_tau=tau)
+            _, U, info = s(t_data)
+            assert U.norm(dim=-1).max() <= SOC_R3 + 1e-4 and U.abs().max() <= 1 + 1e-5
+            outs[f"port {method}"] = (info["converged"].numpy(), info["iters"].numpy())
+        for name, (conv, its) in outs.items():
+            print(f"tau {tau or 0.99}, lanes {F7_LANES}: {name} converged {conv.tolist()}, "
+                  f"SCP iterations {its.tolist()}")
+        if tau == 0.95:
+            ref_conv, ref_its = outs["JAX riccati"]
+            assert ref_conv.all()
+            for conv, its in outs.values():
+                np.testing.assert_array_equal(conv, ref_conv)
+                assert np.abs(its - ref_its).max() <= 1, (its, ref_its)
