@@ -81,7 +81,37 @@ reaches no Pallas kernel either): their launch counts must stay 0;
    (64, 71, 71) f64, boxes and cones held to 1e-6, the card against the CPU
    at B=4 (U to 1e-7); then squareplus smoothing under control cones
    (nv = 210): no hand kernel, zero launches;
-then phase 9 once more for the shapes phases 10-18 launched, one JSON line
+then phase 9 once more for the shapes phases 10-18 launched;
+19. logbarrier smoothing of phase 18's program (smooth_alpha 50, f64, B=64):
+   the box rows and the extras' linear rows become exponential cones, the
+   keep-in cones stay SOCs (nv = 213: the library's factor, zero launches),
+   solved by the central-path barrier method: converged >= 0.95 B, every u
+   strictly inside the box, every barrier solve of the last SCP iteration
+   converged; the first SCP iteration of 4 problems on the card against the
+   host CPU (U to 1e-6, to 1e-8 where the Newton counts agree, both counts
+   printed) and problem 0's full call on both (reported);
+20. phase 18's program plus one user exponential cone per particle (a soft
+   terminal-speed limit whose aux costs linearly): nv = 73, K4 alone at
+   (64, 73, 73) f64; converged >= 0.95 B, boxes and keep-in cones to 1e-6,
+   every exp slack of every lane's first subproblem inside its cone to 1e-9,
+   the card against the CPU as in 19, and lane 0's first subproblem through
+   the serial `composed_cone_solve` on the card (exp_device, no host
+   fallback, U to 1e-6 of the batch's lane 0);
+21. the smooth-constraint solvers on the headline instance's first
+   subproblem (M=32, N=30, Nc=5, box +-1): `barrier_solve_np` under
+   logbarrier (alpha 50) and squareplus (alpha 8), f32 and f64 (K1 + K2:
+   its ipm_core warm start and the Newton blocks (32, 50, 50); the f32
+   squareplus U held by the f64 objective at it, 1e-6 relative);
+   `barrier_core` from the previous controls (strictly inside, K2 twice a
+   Newton step); L-BFGS against it (8000 iterations, 5e-3); a quadratic
+   ``diff_cost_fn`` against the exact solve (2e-3); CVX and SQP against
+   `barrier_core` (1e-6; M cut to 8 if one dense Newton step of the
+   1610-vector takes over 0.5 s, and the cut is printed);
+22. the Riccati smooth Newton (no hand kernel): squareplus against the
+   condensed Newton on 21's subproblem in f64 (1e-5), then the long-horizon
+   configuration at N = 280 (M=1, box +-1, state box +-6, slew 0.1) in f32:
+   finite, the smoothed boxes respected, ms a call;
+then phase 9 once more for the shapes phases 19-22 launched, one JSON line
 for the kernels and, last, one JSON line for the run. Every solver phase sets
 the launch counts to 0 before its timed call and reads them after it.
 """
@@ -97,13 +127,16 @@ import torch
 
 from pmpc_tpu_torch.conebatch import _canon_problem, solve_problems_cone
 from pmpc_tpu_torch.dynamics import dynamics_violation, linearize
-from pmpc_tpu_torch.flagship import (HEADLINE_KW, KEEP_IN_C, KEEP_IN_R, SOC_R3,
-                                     baseline_config, cvar_batch, dubins, extras_batch,
-                                     flagship, long_horizon, podscale, probe, stack_varied)
+from pmpc_tpu_torch.flagship import (EXP_KAPPA, EXP_VMAX, HEADLINE_KW, KEEP_IN_C, KEEP_IN_R,
+                                     SOC_R3, baseline_config, cvar_batch, dubins,
+                                     extras_batch, flagship, flagship_subproblem, long_horizon,
+                                     long_horizon_subproblem, podscale, probe, stack_varied)
 from pmpc_tpu_torch.ops import chol_inv
-from pmpc_tpu_torch.solvers import ipm
-from pmpc_tpu_torch.solvers.compose import COST_ANCHOR_EPS, composed_solve_batch_device
-from pmpc_tpu_torch.solvers.reduced import assemble_condensed
+from pmpc_tpu_torch.solvers import barrier, ipm
+from pmpc_tpu_torch.solvers.compose import (COST_ANCHOR_EPS, composed_cone_solve,
+                                            composed_solve_batch_device)
+from pmpc_tpu_torch.solvers.extras import _canon_extras, terminal_cross_cost
+from pmpc_tpu_torch.solvers.reduced import assemble_condensed, recover_XU, solve_eq
 from pmpc_tpu_torch.utils import matmul_precision_scope
 
 ROOT = Path(__file__).resolve().parent
@@ -133,13 +166,19 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # further shapes the phases launch: (adds a diagonal, batch, n)
 OTHER_SHAPES = ((True, 8, 50), (False, 1, 10), (False, 32, 10), (False, 2048, 50),
                 (False, 512, 40), (False, 128, 50), (False, 4, 10), (False, 64, 45),
-                (False, 64, 71))
+                (False, 64, 71), (False, 64, 73), (True, 32, 50), (False, 32, 50))
 K2_WIDE = (2048, 50)  # K2's second timed shape, from the state-box phase
 K2_CONE = (512, 40)  # K2's third timed shape: config 3's cone Newton blocks
 K2_CVAR = (64, 45)  # K2 in f64: the CVaR program's Newton matrix (phase 17)
 K4_EXTRAS = (64, 71)  # K4 in f64: the extras program's (phase 18)
+K4_EXP = (64, 73)  # K4 in f64: the exp-cone extras program's barrier Newton matrix (phase 20)
+K2_SMOOTH = (32, 50)  # K2: the smooth Newton's per-particle blocks (phase 21)
 B_CONFIG3 = 512
-B_CONE, M_CVAR, K_CVAR, B_CHECK = 64, 4, 3, 4  # phases 17-18
+B_CONE, M_CVAR, K_CVAR, B_CHECK = 64, 4, 3, 4  # phases 17-20
+ALPHA_LOG, ALPHA_SQ = 50.0, 8.0  # phases 19 and 21-22: logbarrier and squareplus alpha
+NV_LOG, NV_EXP = 213, 73  # the composed programs' widths in phases 19 and 20
+LBFGS_ITERS, COST_ITERS = 8000, 1000  # phase 21: L-BFGS iterations (logbarrier, user cost)
+NEWTON_SMOOTH = 40  # phase 21: Newton steps of the references
 FAILED = []
 CHECKED = set()  # (adds a diagonal, batch, n, dtype) held against plain
 
@@ -262,7 +301,7 @@ def phase_kernels(dev, card):
     for diag, B, n in OTHER_SHAPES:
         for dtype in (torch.float32, torch.float64):
             err = check(diag, *spd_inputs(B, n, dtype, dev))
-            if (B, n) in (K2_WIDE, K2_CONE, K2_CVAR, K4_EXTRAS):
+            if (B, n) in (K2_WIDE, K2_CONE, K2_CVAR, K4_EXTRAS, K4_EXP, K2_SMOOTH):
                 other[(B, n, dtype)] = {"shape": [B, n, n], "dtype": str(dtype)[6:],
                                         "max_abs_err": err}
     for n in (1, 7, 8, 9, 33, 63, 64, 65, 72, 95, 96):
@@ -315,15 +354,19 @@ def phase_kernels(dev, card):
     # library, kernel, kernel, library, plain
     f32, f64 = torch.float32, torch.float64
     results["inv_cholesky"]["other_shapes"] = [other[K2_WIDE + (f32,)], other[K2_CONE + (f32,)],
-                                               other[K2_CVAR + (f64,)]]
-    results["inv_cholesky_big"]["other_shapes"] = [other[K4_EXTRAS + (f64,)]]
+                                               other[K2_CVAR + (f64,)],
+                                               other[K2_SMOOTH + (f32,)]]
+    results["inv_cholesky_big"]["other_shapes"] = [other[K4_EXTRAS + (f64,)],
+                                                   other[K4_EXP + (f64,)]]
     timed = [(name, diag, B, n, f32, results[name])
              for name, (_, diag, (B, n), _) in KERNELS.items()]
     timed[2:2] = [("inv_cholesky", False, *K2_WIDE, f32, other[K2_WIDE + (f32,)]),
                   ("inv_cholesky", False, *K2_CONE, f32, other[K2_CONE + (f32,)]),
                   ("inv_cholesky", False, *K2_CONE, f64, other[K2_CONE + (f64,)]),
                   ("inv_cholesky", False, *K2_CVAR, f64, other[K2_CVAR + (f64,)])]
+    timed.insert(6, ("inv_cholesky", False, *K2_SMOOTH, f32, other[K2_SMOOTH + (f32,)]))
     timed.append(("inv_cholesky_big", False, *K4_EXTRAS, f64, other[K4_EXTRAS + (f64,)]))
+    timed.append(("inv_cholesky_big", False, *K4_EXP, f64, other[K4_EXP + (f64,)]))
     for name, diag, B, n, dtype, r in timed:
         A, w = spd_inputs(B, n, dtype, dev)
         fns = {"plain": lambda: run(diag, A, w, plain=True),
@@ -962,6 +1005,340 @@ def phase_extras(dev, card):
     return launches
 
 
+def lane_newton(stats, it=None):
+    """Newton steps of every lane of a barrier-method call: in its SCP
+    iteration ``it``, or summed over the call's iterations."""
+    n = stats["newton_steps"]
+    return n[it] if it is not None else n.sum(0)
+
+
+def card_against_cpu(tag, first, st_g, out_g, dev, single, card):
+    """[19]/[20]: the first SCP iteration of the first B_CHECK problems on the
+    card (``out_g``, ``st_g``: the card's call over the batch) against the
+    same call on the host CPU: U to 1e-6 and, on the lanes whose Newton step
+    counts agree, to 1e-8; then one problem's full call on the card against
+    the CPU (reported)."""
+    cpu = torch.device("cpu")
+    st_c = {}
+    out_c, dt_c, _ = cone_call(first[:B_CHECK], cpu, st_c)
+    dU = np.abs(stack_U(out_g[:B_CHECK]) - stack_U(out_c)).reshape(B_CHECK, -1).max(1)
+    n_g, n_c = lane_newton(st_g, 0)[:B_CHECK], lane_newton(st_c, 0)
+    same = n_g == n_c
+    print(f"    card against the CPU, first SCP iteration of problems 0-{B_CHECK - 1}: |dU|_inf "
+          f"per lane {np.array2string(dU, precision=3)} (tol 1e-6; 1e-8 where the Newton "
+          f"counts agree), Newton steps card {n_g.tolist()} CPU {n_c.tolist()}; the CPU took "
+          f"{dt_c * 1e3:.1f} ms for the {B_CHECK} problems [{card}]")
+    require(dU.max() <= 1e-6 and (dU[same].max(initial=0.0) <= 1e-8),
+            f"[{tag}] first SCP iteration: card and CPU differ by {dU.max():.3e} (equal "
+            f"Newton counts on {same.tolist()})")
+    out1, dt1, _ = cone_call(single, dev)
+    out1c, dt1c, _ = cone_call(single, cpu)
+    print(f"    problem 0's full call: card {dt1 * 1e3:.1f} ms, host CPU {dt1c * 1e3:.1f} ms, "
+          f"SCP iterations {out1[0][2]['iters']} / {out1c[0][2]['iters']}, |dU|_inf = "
+          f"{np.abs(stack_U(out1) - stack_U(out1c)).max():.3e} (reported) [{card}]")
+
+
+def phase_logbarrier(dev, card):
+    """[19] logbarrier smoothing of phase 18's extras program: the box rows
+    and the extras' linear rows become exponential cones (the barrier
+    method, nv = 213: the library's factor, no hand kernel)."""
+    probs = extras_batch(B_CONE, smooth_cstr="logbarrier", smooth_alpha=ALPHA_LOG)
+    first = [dict(p, max_it=1) for p in probs]
+    st1 = {}
+    out1, dt1, _ = cone_call(first, dev, st1)  # also the warm-up of the shapes
+    stats = {}
+    out, dt, launches = cone_call(probs, dev, stats)
+    U = stack_U(out)
+    conv = np.array([d is not None and d["converged"] for _, _, d in out])
+    per_call = lane_newton(stats)
+    print(f"[19] logbarrier (alpha {ALPHA_LOG}) on the extras program B={B_CONE} M=2 N=20 "
+          f"Nc=5 f64, exp cones in the barrier method (nv = {NV_LOG}): {dt * 1e3:.1f} ms/call, "
+          f"converged {int(conv.sum())} of {B_CONE}, SCP iterations "
+          f"{out[0][2]['iters'] if out[0][2] else None}, Newton steps a call median "
+          f"{float(np.median(per_call))} max {int(per_call.max())} (first SCP iteration "
+          f"{dt1 * 1e3:.1f} ms) [{card}]; launches {launches}")
+    print(f"    max |u| {np.nanmax(np.abs(U)):.9f}; barrier solves converged in the last SCP "
+          f"iteration: {int(stats['ipm_converged'][-1].sum())} of {B_CONE}")
+    require(conv.sum() >= 0.95 * B_CONE, f"[19] converged {int(conv.sum())} < 0.95 x {B_CONE}")
+    require(np.isfinite(U[conv]).all() and np.nanmax(np.abs(U)) < 1,
+            "[19] a control is not strictly inside the box")
+    require(stats["ipm_converged"][-1].all(),
+            "[19] a barrier solve did not converge in the last SCP iteration")
+    require(only_launched(launches, ()), f"[19] nv = {NV_LOG} launched {launches}")
+    card_against_cpu(19, first, st1, out1, dev, probs[:1], card)
+    return launches
+
+
+def phase_exp_extras(dev, card):
+    """[20] phase 18's extras program plus one user exponential cone per
+    particle (the soft terminal-speed limit, `flagship.exp_speed_extras`):
+    nv = 73, the barrier method's Newton and phase-I factors through K4."""
+    probs = extras_batch(B_CONE, exp_speed=True)
+    first = [dict(p, max_it=1) for p in probs]
+    st1 = {}
+    out1, dt1, _ = cone_call(first, dev, st1)
+    stats = {}
+    out, dt, launches = cone_call(probs, dev, stats)
+    U = stack_U(out)
+    conv = np.array([d is not None and d["converged"] for _, _, d in out])
+    X = np.stack([X for X, _, _ in out if X is not None])
+    dist = np.linalg.norm(X[:, :, 1:, :2] - np.array(KEEP_IN_C), axis=-1)
+    per_call = lane_newton(stats)
+    print(f"[20] extras with an exp cone per particle (s_m >= exp({EXP_KAPPA} (v_N - "
+          f"{EXP_VMAX}))) B={B_CONE} M=2 N=20 Nc=5 f64 (nv = {NV_EXP}): {dt * 1e3:.1f} ms/call, "
+          f"converged {int(conv.sum())} of {B_CONE}, SCP iterations "
+          f"{out[0][2]['iters'] if out[0][2] else None}, Newton steps a call median "
+          f"{float(np.median(per_call))} max {int(per_call.max())} [{card}]; launches {launches}")
+    require(conv.sum() >= 0.95 * B_CONE, f"[20] converged {int(conv.sum())} < 0.95 x {B_CONE}")
+    require(np.nanmax(np.abs(U)) <= 1 + 1e-6, "[20] the control box is violated")
+    require((dist - KEEP_IN_R).max() <= 1e-6, "[20] a keep-in cone is violated")
+    require(only_launched(launches, ("inv_cholesky_big",))
+            and ("inv_cholesky_big", B_CONE, NV_EXP, torch.float64) in chol_inv.SHAPES,
+            f"[20] launches {launches}: expected K4 at ({B_CONE}, {NV_EXP}, {NV_EXP}) f64 only")
+    # the exp slacks of every lane's first subproblem, solved on the card
+    # (the aux s_m follow the keep-in tuple's one slack)
+    probs_t, _ = first_subproblem(probs, dev)
+    bounds = {k: torch.from_numpy(np.stack([p[k] for p in probs])).to(dev) for k in ("u_l", "u_u")}
+    ec = [p["solver_settings"]["extra_cstrs"] for p in probs]
+    canon = [_canon_extras(e, 10 + 2 * 15 * 2 + 2 * 20 * 4) for e in ec]
+    sig = canon[0][0]
+    ecs = tuple(tuple(torch.from_numpy(np.stack([c[1][i][j] for c in canon])).to(dev)
+                      for j in range(5)) for i in range(len(sig)))
+    Hf = torch.from_numpy(np.stack([p["solver_settings"]["Hf"] for p in probs])).to(dev)
+    X1, U1, aux, st, _ = composed_solve_batch_device(
+        probs_t, bounds, ecs, {"Hf": Hf}, (20, 2, 4), sig, "", 1.0, 1.0, Nc=5, tol_exp=-8)
+    s_m, v_N = aux[:, 1:3], X1[:, :, -1, 2]
+    margin = (torch.log(s_m) - EXP_KAPPA * (v_N - EXP_VMAX)).min().item()
+    dU1 = np.abs(U1.cpu().numpy() - stack_U(out1)).max()
+    print(f"    first subproblem of every lane: smallest exp-cone margin log(s_m) - kappa "
+          f"(v_N - v_max) = {margin:.3e} (>= -1e-9), converged {int(st['converged'].sum())} of "
+          f"{B_CONE}, against the SCP call's first iteration |dU|_inf = {dU1:.3e}")
+    require(margin >= -1e-9 and bool(st["converged"].all()),
+            f"[20] an exp slack leaves its cone by {-margin:.3e}")
+    card_against_cpu(20, first, st1, out1, dev, probs[:1], card)
+    # lane 0 through the serial composed solve on the card
+    p0 = {k: v[:1] for k, v in probs_t.items()}
+    keys = ("x0", "f", "fx", "fu", "X_prev", "U_prev", "Q", "R", "X_ref", "U_ref", "reg_x",
+            "reg_u", "slew_reg", "slew_reg0", "slew_um1")
+    cqp = assemble_condensed(*(p0[k] for k in keys), Nc=5)
+    H_extra, q_extra = terminal_cross_cost(cqp, N=20, xdim=4, Hf=Hf[:1])
+    chol_inv.reset_launch_counts()
+    Xs, Us, ds = composed_cone_solve(cqp, 20, 2, 4, probs[0]["u_l"], probs[0]["u_u"], None, None,
+                                     ec[0], settings={}, H_extra=H_extra, q_extra=q_extra)
+    torch.cuda.synchronize()
+    err = np.abs(Us - stack_U(out1)[0]).max()
+    print(f"    lane 0's first subproblem through the serial composed_cone_solve on the card: "
+          f"exp_device {ds.get('exp_device')}, exp_host_fallback {ds.get('exp_host_fallback')}, "
+          f"|U - U_batch lane 0|_inf = {err:.3e} (tol 1e-6); launches {dict(chol_inv.LAUNCHES)}")
+    require(ds.get("exp_device") is True and "exp_host_fallback" not in ds and err <= 1e-6,
+            f"[20] the serial exp branch: {ds.get('exp_device')}, {err:.3e}")
+    return launches
+
+
+def flagship_U(uc, uf, M, N=30, udim=2):
+    nc = uc.shape[-1]
+    return torch.cat([uc[:, None].expand(1, M, nc), uf], -1).reshape(M, N, udim).cpu().numpy()
+
+
+def smoothed_f64(base, reg, ul, uu, Nc, U, method, alpha, dev):
+    """The smoothed objective of the f64 subproblem at controls U (M, N, udim)."""
+    M, N, udim = U.shape
+    nc, nf = Nc * udim, (N - Nc) * udim
+    T = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)[None]
+    cqp = assemble_condensed(*(T(a) for a in base + reg), Nc=Nc)
+    bt = ipm._layout_bounds(ul, uu, None, None, M, N, N * 4, nc, nf, udim, np.float64,
+                            device=dev)
+    w = T(U).reshape(M, N * udim)
+    F = barrier._Smoothed(cqp, bt, method, alpha, 1.0)
+    return float(F(w[0, :nc][None, None], w[:, nc:][None, None])[0, 0])
+
+
+def phase_smooth_newton(dev, card):
+    """[21] the smooth-constraint solvers on the headline instance's first
+    subproblem (M=32, N=30, Nc=5, box +-1): the structured Newton of
+    `barrier_solve_np` (K1 + K2 in its ipm_core warm start, K2 in the Newton),
+    L-BFGS, a user cost, the dense CVX / SQP."""
+    base64, reg64, ul, uu, Nc = flagship_subproblem(dtype=np.float64)
+    M, N = base64[1].shape[:2]
+    nc, nf = Nc * 2, (N - Nc) * 2
+    out, objs = {}, {}
+    for npdt in (np.float32, np.float64):
+        cast = lambda t: tuple(np.asarray(a, npdt) for a in t)
+        for method, alpha in (("logbarrier", ALPHA_LOG), ("squareplus", ALPHA_SQ)):
+            barrier.barrier_solve_np(cast(base64), cast(reg64), ul, uu, None, None, Nc=Nc,
+                                     method=method, alpha=alpha, device=dev)  # warm
+            chol_inv.reset_launch_counts()
+            t0 = time.perf_counter()
+            X, U, d = barrier.barrier_solve_np(cast(base64), cast(reg64), ul, uu, None, None,
+                                               Nc=Nc, method=method, alpha=alpha, device=dev)
+            torch.cuda.synchronize()
+            dt, launches = time.perf_counter() - t0, dict(chol_inv.LAUNCHES)
+            out[(npdt, method)], objs[(npdt, method)] = U, d["obj"]
+            print(f"[21] barrier_solve_np {method} (alpha {alpha}) {npdt.__name__} on the "
+                  f"flagship subproblem: {dt * 1e3:.1f} ms/call, obj {d['obj']:.9g}, max |u| "
+                  f"{np.abs(U).max():.9f} [{card}]; launches {launches}")
+            require(np.isfinite(U).all() and U.dtype == npdt, f"[21] {method} output")
+            require(only_launched(launches, ("inv_cholesky_diag", "inv_cholesky"))
+                    and ("inv_cholesky", 32, 50, torch.from_numpy(U).dtype) in chol_inv.SHAPES,
+                    f"[21] {method} launches {launches}: expected K1 and K2 (32, 50, 50)")
+    # f32 against f64. squareplus: the optimum is flat at f32's resolution of
+    # an objective near -3.8e4 (the best-of-halvings search stops where f32
+    # cannot see a decrease), in the JAX package too (ROADMAP §3 F9): U may
+    # stop ~0.1 from the f64 U, so U32 is held by the f64 objective at it,
+    # within 1e-6 relative of the f64 optimum, and the f32 objective to 1e-5.
+    # logbarrier: the answer is ipm_core's point (R3), f32 at mu 1e-5, f64 at
+    # 1e-8: U to 1e-2
+    for method in ("logbarrier", "squareplus"):
+        e = np.abs(out[(np.float32, method)] - out[(np.float64, method)]).max()
+        o32, o64 = objs[(np.float32, method)], objs[(np.float64, method)]
+        rel = abs(o32 - o64) / abs(o64) if np.isfinite(o64) else float("nan")
+        msg = (f"    {method}: |U32 - U64|_inf = {e:.3e}, objective f32 {o32:.9g} f64 {o64:.9g} "
+               f"(rel {rel:.3e})")
+        if method == "squareplus":
+            excess = (smoothed_f64(base64, reg64, ul, uu, Nc, out[(np.float32, method)],
+                                   method, ALPHA_SQ, dev) - o64) / abs(o64)
+            print(f"{msg}; f64 objective at U32 {excess:.3e} above the f64 optimum (tol 1e-6)")
+            require(rel <= 1e-5 and 0 <= excess <= 1e-6,
+                    f"[21] squareplus f32: objective {rel:.3e} from f64, f64 objective at U32 "
+                    f"{excess:.3e} above the optimum")
+        else:
+            print(msg)
+            require(e <= 1e-2, f"[21] logbarrier: f32 and f64 differ by {e:.3e}")
+    # the logbarrier Newton from barrier_core's own start (the previous
+    # controls, 0: strictly inside); barrier_solve_np's start is ipm_core's
+    # point, on the box to rounding, where the logbarrier objective is +inf
+    # and no step lowers it (the JAX package does the same: ROADMAP §3 R3)
+    T = lambda a: torch.as_tensor(np.asarray(a), device=dev)[None]
+    cqp = assemble_condensed(*(T(a) for a in base64 + reg64), Nc=Nc)
+    bt = ipm._layout_bounds(ul, uu, None, None, M, N, N * 4, nc, nf, 2, np.float64, device=dev)
+    chol_inv.reset_launch_counts()
+    t0 = time.perf_counter()
+    uc, uf, st = barrier.barrier_core(cqp, bt, "logbarrier", ALPHA_LOG, 1.0, True, False,
+                                      iters=NEWTON_SMOOTH)
+    torch.cuda.synchronize()
+    dt, launches = time.perf_counter() - t0, dict(chol_inv.LAUNCHES)
+    U_ref = flagship_U(uc, uf, M)
+    obj_ref = float(st["obj"][0])
+    print(f"    barrier_core logbarrier f64 from the previous controls, {NEWTON_SMOOTH} Newton "
+          f"steps: {dt * 1e3:.1f} ms, obj {obj_ref:.9g}, max |u| {np.abs(U_ref).max():.9f} "
+          f"(strictly inside) [{card}]; launches {launches}")
+    require(np.abs(U_ref).max() < 1 and np.isfinite(obj_ref),
+            "[21] the logbarrier Newton is not strictly inside")
+    require(launches["inv_cholesky"] == 2 * NEWTON_SMOOTH
+            and only_launched(launches, ("inv_cholesky",)),
+            f"[21] barrier_core launches {launches}: expected K2 twice a Newton step")
+    # L-BFGS on the same program: its logbarrier optimum sits within 1e-4 of
+    # the box, so L-BFGS needs thousands of iterations (optax's in the JAX
+    # package too: 6.4e-4 from the Newton after 8000 on the CPU)
+    t0 = time.perf_counter()
+    X, U, d = barrier.barrier_solve_np(base64, reg64, ul, uu, None, None, Nc=Nc,
+                                       method="logbarrier", alpha=ALPHA_LOG, device=dev,
+                                       settings=dict(solver="LBFGS", max_it=LBFGS_ITERS))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    e, rel = np.abs(U - U_ref).max(), abs(d["obj"] - obj_ref) / abs(obj_ref)
+    print(f"    L-BFGS logbarrier f64, M={M}, {LBFGS_ITERS} iterations: {dt * 1e3:.1f} ms "
+          f"({dt * 1e3 / LBFGS_ITERS:.3f} ms/iteration), |U - U_newton|_inf = {e:.3e} (tol 5e-3), "
+          f"objective {d['obj']:.9g} against {obj_ref:.9g} (rel {rel:.3e}) [{card}]")
+    require(np.isfinite(U).all() and np.abs(U).max() < 1 and e <= 5e-3,
+            f"[21] L-BFGS: {e:.3e} from the Newton")
+    # a quadratic user cost, no bounds, against the exact solve of the
+    # equivalently modified QP (Q + cI, X_ref with (Q + cI) X_ref' = Q X_ref + c a)
+    c, a = 2.0, 0.3
+    t0 = time.perf_counter()
+    X, U, d = barrier.barrier_solve_np(base64, reg64, None, None, None, None, Nc=Nc, device=dev,
+                                       settings=dict(max_it=COST_ITERS),
+                                       extra_obj=lambda X, U: 0.5 * c * ((X - a) ** 2).sum())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    Q = base64[6]
+    Qp = Q + c * np.eye(4)
+    Xr = np.linalg.solve(Qp, (np.einsum("mnij,mnj->mni", Q, base64[8]) + c * a)[..., None])[..., 0]
+    cq = assemble_condensed(*(T(v) for v in base64[:6] + (Qp, base64[7], Xr, base64[9]) + reg64),
+                            Nc=Nc)
+    _, U_e = recover_XU(cq, *solve_eq(cq), N=N)
+    e = np.abs(U - U_e[0].cpu().numpy()).max()
+    print(f"    diff_cost_fn 0.5 c |X - a|^2 through L-BFGS ({COST_ITERS} iterations), no bounds: "
+          f"{dt * 1e3:.1f} ms, |U - U_exact|_inf = {e:.3e} (tol 2e-3) [{card}]")
+    require(e <= 2e-3, f"[21] diff_cost_fn: {e:.3e} from the exact solve")
+    # the dense CVX / SQP: time one Hessian of the full problem first
+    Mc = 32
+    b, r, ul_c, uu_c, _ = flagship_subproblem(M=Mc, dtype=np.float64)
+    t0 = time.perf_counter()
+    barrier.barrier_solve_np(b, r, ul_c, uu_c, None, None, Nc=Nc, method="logbarrier",
+                             alpha=ALPHA_LOG, device=dev, settings=dict(solver="CVX",
+                                                                        newton_iters=1))
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t0
+    if t_one > 0.5:
+        Mc = 8
+        print(f"    CVX / SQP: one dense Newton step of the {10 + 32 * 50}-vector took "
+              f"{t_one * 1e3:.1f} ms: M cut to {Mc} for them")
+        b, r, ul_c, uu_c, _ = flagship_subproblem(M=Mc, dtype=np.float64)
+        cq = assemble_condensed(*(T(v) for v in b + r), Nc=Nc)
+        bc = ipm._layout_bounds(ul_c, uu_c, None, None, Mc, N, N * 4, nc, nf, 2, np.float64,
+                                device=dev)
+        ucc, ufc, stc = barrier.barrier_core(cq, bc, "logbarrier", ALPHA_LOG, 1.0, True, False,
+                                             iters=NEWTON_SMOOTH)
+        U_c = flagship_U(ucc, ufc, Mc)
+    else:
+        U_c = U_ref
+    for solver in ("CVX", "SQP"):
+        t0 = time.perf_counter()
+        X, U, d = barrier.barrier_solve_np(b, r, ul_c, uu_c, None, None, Nc=Nc,
+                                           method="logbarrier", alpha=ALPHA_LOG, device=dev,
+                                           settings=dict(solver=solver,
+                                                         newton_iters=NEWTON_SMOOTH))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        e = np.abs(U - U_c).max()
+        print(f"    {solver} logbarrier f64 M={Mc} ({10 + Mc * 50} variables, {NEWTON_SMOOTH} "
+              f"steps): {dt * 1e3:.1f} ms, |U - U_barrier_core|_inf = {e:.3e} (tol 1e-6) "
+              f"[{card}]")
+        require(e <= 1e-6, f"[21] {solver}: {e:.3e} from barrier_core")
+    return launches
+
+
+def phase_riccati_smooth(dev, card):
+    """[22] the Riccati smooth Newton (no hand kernel, as in the JAX package):
+    against the condensed Newton on [21]'s subproblem in f64, then the
+    long-horizon configuration at N = 280 in f32."""
+    base, reg, ul, uu, Nc = flagship_subproblem(dtype=np.float64)
+    kw = dict(Nc=Nc, method="squareplus", alpha=ALPHA_SQ, beta=1.0,
+              settings=dict(newton_iters=25), device=dev)
+    barrier.riccati_barrier_solve_np(base, reg, ul, uu, None, None, **kw)
+    chol_inv.reset_launch_counts()
+    t0 = time.perf_counter()
+    Xr, Ur, dr = barrier.riccati_barrier_solve_np(base, reg, ul, uu, None, None, **kw)
+    torch.cuda.synchronize()
+    dt, launches = time.perf_counter() - t0, dict(chol_inv.LAUNCHES)
+    Xc, Uc, dc = barrier.barrier_solve_np(base, reg, ul, uu, None, None, **kw)
+    eU, eX = np.abs(Ur - Uc).max(), np.abs(Xr - Xc).max()
+    print(f"[22] Riccati squareplus (alpha {ALPHA_SQ}) f64 on the flagship subproblem: "
+          f"{dt * 1e3:.1f} ms/call, against the condensed Newton |dU|_inf = {eU:.3e}, |dX|_inf "
+          f"= {eX:.3e} (tol 1e-5) [{card}]; launches {launches}")
+    require(eU <= 1e-5 and eX <= 1e-5, f"[22] Riccati and condensed differ by {eU:.3e}")
+    no_kernel(22, launches)
+    b, r, ul, uu, xl, xu = long_horizon_subproblem(280)
+    lkw = dict(Nc=0, method="squareplus", alpha=20.0, beta=200.0, device=dev)
+    barrier.riccati_barrier_solve_np(b, r, ul, uu, xl, xu, settings=dict(newton_iters=2), **lkw)
+    chol_inv.reset_launch_counts()
+    t0 = time.perf_counter()
+    X, U, d = barrier.riccati_barrier_solve_np(b, r, ul, uu, xl, xu,
+                                               settings=dict(newton_iters=15), **lkw)
+    torch.cuda.synchronize()
+    dt, launches = time.perf_counter() - t0, dict(chol_inv.LAUNCHES)
+    print(f"[22] long horizon N=280 (M=1, box +-1, state box +-{X_BOX}, slew 0.1) f32, squareplus "
+          f"(alpha 20, beta 200), 15 Newton steps: {dt * 1e3:.1f} ms/call, max |u| "
+          f"{np.abs(U).max():.6f}, max |x| {np.abs(X).max():.6f}, dtype {U.dtype} [{card}]; "
+          f"launches {launches}")
+    require(np.isfinite(U).all() and np.isfinite(X).all() and U.dtype == np.float32,
+            "[22] long horizon: output not finite or not f32")
+    require(np.abs(U).max() <= 1 + 1e-2 and np.abs(X).max() <= X_BOX + 1e-2,
+            "[22] long horizon: a smoothed box is not respected")
+    no_kernel(22, launches)
+
+
 def main():
     card = phase_card()
     dev = torch.device("cuda", 0)
@@ -987,12 +1364,29 @@ def main():
         cvar = phase_cvar(dev, card)
         extras = phase_extras(dev, card)
         phase_launched_shapes(dev)
+        t0 = time.perf_counter()
+        phase_logbarrier(dev, card)
+        print(f"    [19] took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        exp_extras = phase_exp_extras(dev, card)
+        print(f"    [20] took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        smooth = phase_smooth_newton(dev, card)
+        print(f"    [21] took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_riccati_smooth(dev, card)
+        print(f"    [22] took {time.perf_counter() - t0:.1f} s")
+        phase_launched_shapes(dev)
     # the state-box phase launches K2 twice per IPM iteration, once at each shape
-    wide, cone, cvar_shape = kern["inv_cholesky"]["other_shapes"]
+    wide, cone, cvar_shape, smooth_shape = kern["inv_cholesky"]["other_shapes"]
     wide["launches"] = launches["state_box"]["inv_cholesky"] // 2
     cone["launches"] = config3["inv_cholesky"]
     cvar_shape["launches"] = cvar["inv_cholesky"]
-    kern["inv_cholesky_big"]["other_shapes"][0]["launches"] = extras["inv_cholesky_big"]
+    # barrier_core's Newton step: one K2 at (32, 50, 50), one at (1, 10, 10)
+    smooth_shape["launches"] = smooth["inv_cholesky"] // 2
+    extras_shape, exp_shape = kern["inv_cholesky_big"]["other_shapes"]
+    extras_shape["launches"] = extras["inv_cholesky_big"]
+    exp_shape["launches"] = exp_extras["inv_cholesky_big"]
     for name, (_, _, _, path) in KERNELS.items():
         require(launches[path][name] > 0, f"the {path} path never launched {name}")
     if FAILED:

@@ -1,13 +1,16 @@
 """Scenario-batched SCP over composed cone programs (CVaR-k, user extras,
-the cross-particle terminal cost ``Hf``, control-norm cones with squareplus
-smoothing), symmetric cones.
+the cross-particle terminal cost ``Hf``, control-norm cones, squareplus and
+logbarrier smoothing, user exponential cones).
 
 Twin of the composed route of ``pmpc_tpu/conebatch.py``: B problems of one
 signature (M particles each) run a host-driven SCP loop whose iteration is
 one batched step: linearize, condensed assembly, cone-program build and the
 NT cone IPM over the batch axis (`compose.composed_solve_batch_device`),
 with per-problem convergence, failure flags, the reject contract and warm
-starts kept on the device. The host reads one flag an iteration: are all
+starts kept on the device. Signatures with exponential cones (logbarrier
+smoothing, user ``e`` rows) run the central-path barrier method
+(`expbarrier.exp_barrier_solve`) over the batch instead of the NT IPM, as
+the JAX function vmaps it. The host reads one flag an iteration: are all
 problems done.
 
 The programs run in float64 (``cone_dtype``) on the card: the JAX package
@@ -17,10 +20,9 @@ the torch step function ``f(x (xdim,), u (udim,)) -> (xdim,)`` under the
 key ``dynamics`` (the JAX ``f_fx_fu_fn`` wrapper has no twin).
 
 Not ported: the structured batched route (boxes, per-stage control cones and
-linear-only extras on the arrow IPM; ROADMAP §1.10) and exponential cones
-(logbarrier smoothing, user ``e`` rows; ROADMAP §1.8): their signatures
-raise `NotImplementedError`. The XLA-CPU batch sharding of the JAX function is
-a host-XLA workaround with nothing to port.
+linear-only extras on the arrow IPM; ROADMAP §1.10): its signatures raise
+`NotImplementedError`. The XLA-CPU batch sharding of the JAX function is a
+host-XLA workaround with nothing to port.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import numpy as np
 import torch
 
 from .dynamics import linearize
-from .solvers.compose import COST_ANCHOR_EPS, EXP_CONES, composed_solve_batch_device
+from .solvers.compose import COST_ANCHOR_EPS, composed_solve_batch_device
 from .solvers.extras import _canon_extras, split_stage_u_cones
 from .utils import default_device
 
@@ -152,8 +154,11 @@ def solve_problems_cone(problems: Sequence[Dict[str, Any]], split: bool = True,
     ["cone_device"]`` when the problems name one, else on the card (which
     raises where there is none: pass ``device="cpu"`` for the CPU).
     ``stats``, a dict, receives ``ipm_iters`` (SCP iterations x B, the IPM
-    iterations of every lane in every SCP iteration) and ``t_step`` (the
-    seconds of each SCP iteration). Returns the JAX function's per-problem
+    iterations of every lane in every SCP iteration; the phase-II centerings
+    of the barrier method), ``ipm_converged`` (the same shape, the inner
+    solve's flag), ``newton_steps`` with exponential cones (the same shape,
+    the barrier method's Newton steps) and ``t_step`` (the seconds of each
+    SCP iteration). Returns the JAX function's per-problem
     ``(X, U, data)``, or ``(None, None, None)`` for a problem whose
     subproblem failed hard."""
     p0 = problems[0]
@@ -170,9 +175,6 @@ def solve_problems_cone(problems: Sequence[Dict[str, Any]], split: bool = True,
     if smooth == "" and ss0.get("smooth_alpha") is not None \
             and np.isfinite(float(ss0["smooth_alpha"])):
         smooth = "logbarrier"
-    if smooth == "logbarrier":
-        raise NotImplementedError(
-            f"batched cone solves with logbarrier smoothing need exponential cones ({EXP_CONES})")
     B = len(problems)
     cps = [_canon_problem(p) for p in problems]
     M, N, xdim, udim = cps[0]["M"], cps[0]["N"], cps[0]["xdim"], cps[0]["udim"]
@@ -231,9 +233,6 @@ def solve_problems_cone(problems: Sequence[Dict[str, Any]], split: bool = True,
         raise ValueError(
             "batched cone solves need the same extras signature (l, q, e, "
             "n_aux) for every problem; numeric values may differ")
-    if any(e for (_, _, e, _) in sig):
-        raise NotImplementedError(
-            f"batched cone solves with exponential-cone extras (e > 0) ({EXP_CONES})")
     ecs_np = tuple(tuple(np.stack([arrays[b][i][j] for b in range(B)]) for j in range(5))
                    for i in range(len(sig)))
 
@@ -297,7 +296,7 @@ def solve_problems_cone(problems: Sequence[Dict[str, Any]], split: bool = True,
              torch.zeros(B, dtype=torch.bool, device=dev),
              torch.zeros(B, dtype=torch.bool, device=dev))
     warm = None
-    iters_used, t_aff, ipm_hist = 0, [], []
+    iters_used, t_aff, ipm_hist, conv_hist, newton_hist = 0, [], [], [], []
     for it in range(max_it):
         t0 = time.perf_counter()
         state, warm, st = _cone_scp_step(
@@ -307,12 +306,18 @@ def solve_problems_cone(problems: Sequence[Dict[str, Any]], split: bool = True,
         done_all = bool(state[3].all())  # the one host sync of an iteration
         t_aff.append(time.perf_counter() - t0)
         ipm_hist.append(st["iters"])
+        conv_hist.append(st["converged"])
+        if "newton" in st:
+            newton_hist.append(st["newton"])
         iters_used = it + 1
         if done_all:
             break
     X_np, U_np, resid_b, _, failed_b = (z.cpu().numpy() for z in state)
     if stats is not None:
         stats["ipm_iters"] = torch.stack(ipm_hist).cpu().numpy()
+        stats["ipm_converged"] = torch.stack(conv_hist).cpu().numpy()
+        if newton_hist:
+            stats["newton_steps"] = torch.stack(newton_hist).cpu().numpy()
         stats["t_step"] = list(t_aff)
     return _emit(problems, probs_np, X_np, U_np, resid_b, failed_b, iters_used, t_aff,
                  res_tol, split)

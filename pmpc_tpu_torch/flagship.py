@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .dynamics import linearize
 from .torch_scp import SCPData, build_scp_solver, make_scp_data
 
 # the headline build (bench.py): a solve counts when the SCP residual <= 1e-3
@@ -259,8 +260,30 @@ def keep_in_extras(M, N, Nc, xdim=4, udim=2):
     return (2, [3] * (M * N), 0, G, G_r, h, np.zeros(n_full), np.array([SOFT_COST]))
 
 
-def extras_batch(B=64, M=2, N=20, Nc=5, squareplus=False, max_it=40, res_tol=1e-3,
-                 **settings):
+# the soft exponential terminal-speed limit s_m >= exp(EXP_KAPPA (v_N,m - EXP_VMAX)),
+# its aux s_m costing EXP_COST s_m
+EXP_KAPPA, EXP_VMAX, EXP_COST = 4.0, 0.5, 1.0
+
+
+def exp_speed_extras(M, N, Nc, xdim=4, udim=2):
+    """One ``extra_cstrs`` tuple of M exponential cones over the full layout:
+    every particle's soft terminal-speed limit s_m >= exp(EXP_KAPPA (v_N,m -
+    EXP_VMAX)) through an auxiliary s_m of cost EXP_COST. In the convention
+    s = h - G z, (x, y, z) with y >= z exp(x / z): x = EXP_KAPPA (v_N -
+    EXP_VMAX), y = s_m, z = 1."""
+    nu = Nc * udim + M * (N - Nc) * udim
+    n_full = nu + M * N * xdim
+    G, G_r, h = np.zeros((3 * M, n_full)), np.zeros((3 * M, M)), np.zeros(3 * M)
+    for m in range(M):
+        G[3 * m, nu + (m * N + N - 1) * xdim + 2] = -EXP_KAPPA  # v is state entry 2
+        h[3 * m] = -EXP_KAPPA * EXP_VMAX
+        G_r[3 * m + 1, m] = -1.0
+        h[3 * m + 2] = 1.0
+    return (0, [], M, G, G_r, h, np.zeros(n_full), np.full(M, EXP_COST))
+
+
+def extras_batch(B=64, M=2, N=20, Nc=5, squareplus=False, exp_speed=False, max_it=40,
+                 res_tol=1e-3, **settings):
     """The composed extras cell: B problems as `cvar_batch` seeds them, box
     controls +-1, consensus over the first Nc stages. By default the
     `keep_in_extras` tuple and the terminal cross cost Hf = 0.1 I over the
@@ -268,11 +291,61 @@ def extras_batch(B=64, M=2, N=20, Nc=5, squareplus=False, max_it=40, res_tol=1e-
     defaults: K4). ``squareplus=True`` instead smooths the boxes
     (``smooth_cstr="squareplus"``) under the cones ||u_j|| <= 0.9: a
     composed program of nv = 3 (Nc udim + M (N - Nc) udim) (210: past every
-    hand kernel)."""
+    hand kernel). ``exp_speed=True`` adds the `exp_speed_extras` tuple, M
+    exponential cones and M more aux variables (nv = 73 at the defaults:
+    K4 in the barrier method). ``smooth_cstr="logbarrier"`` among the
+    ``settings`` turns the box rows and the extras' linear rows into
+    exponential cones (nv = 213: the library's factor)."""
     box = dict(u_l=-np.ones((M, N, 2)), u_u=np.ones((M, N, 2)))
     if squareplus:
         ss = dict(Nc=Nc, smooth_cstr="squareplus", u_soc_r=np.full((M, N), SOC_R3))
     else:
-        ss = dict(Nc=Nc, extra_cstrs=[keep_in_extras(M, N, Nc)], Hf=0.1 * np.eye(M * 4))
+        ec = [keep_in_extras(M, N, Nc)] + ([exp_speed_extras(M, N, Nc)] if exp_speed else [])
+        ss = dict(Nc=Nc, extra_cstrs=ec, Hf=0.1 * np.eye(M * 4))
     return [_cone_problem(i, M, N, max_it, res_tol, solver_settings=dict(ss, **settings),
                           **box) for i in range(B)]
+
+
+def linearized_subproblem(x0, N, udim=2, slew_reg=0.0, dtype=np.float64):
+    """The first SCP subproblem of the Dubins problem from x0 (M, xdim), in
+    numpy: the dynamics linearized (in f64, on the CPU) about the initial
+    guess X_prev = X_ref = 0, U_prev = U_ref = 0 as the SCP loop starts,
+    Q = I, R = 1e-2 I, reg_x 1, reg_u 0.1, slew regularization ``slew_reg``.
+    Returns (base_args, reg_args) as the ``_np`` entry points of `solvers.barrier`
+    take them, cast to ``dtype``."""
+    x0 = np.asarray(x0, dtype=np.float64)
+    M, xdim = x0.shape
+    X0, U0 = np.zeros((M, N, xdim)), np.zeros((M, N, udim))
+    x_at = np.concatenate([x0[:, None], X0[:, :-1]], 1)
+    f, fx, fu = (a.numpy() for a in linearize(dubins, torch.from_numpy(x_at),
+                                              torch.from_numpy(U0)))
+    Q = np.tile(np.eye(xdim), (M, N, 1, 1))
+    R = np.tile(1e-2 * np.eye(udim), (M, N, 1, 1))
+    base = (x0, f, fx, fu, X0, U0, Q, R, X0, U0)
+    reg = (np.full(M, 1.0), np.full(M, 0.1), np.full(M, slew_reg), np.zeros(M),
+           np.zeros((M, udim)))
+    cast = lambda t: tuple(np.asarray(a, dtype=dtype) for a in t)
+    return cast(base), cast(reg)
+
+
+def flagship_subproblem(M=32, dtype=np.float64):
+    """(base_args, reg_args, u_l, u_u, Nc): the headline instance (N=30,
+    Nc=5, box controls +-1, x0 of seed 0; its first M of 32 particles)
+    linearized once about its initial guess (`linearized_subproblem`), for
+    the smooth-constraint entry points of `solvers.barrier`."""
+    N, xdim, udim = 30, 4, 2
+    base, reg = linearized_subproblem(_x0_seed0(32, xdim, torch.float64)[:M], N,
+                                      dtype=dtype)
+    box = np.ones((M, N, udim), dtype)
+    return base, reg, -box, box, 5
+
+
+def long_horizon_subproblem(N, dtype=np.float32):
+    """(base_args, reg_args, u_l, u_u, x_l, x_u): the long-horizon
+    configuration (`long_horizon`: one car, x0 = ones, box controls +-1,
+    state boxes +-6, slew regularization 0.1) linearized once about its
+    initial guess, for ``riccati_barrier_solve_np``."""
+    xdim, udim = 4, 2
+    base, reg = linearized_subproblem(np.ones((1, xdim)), N, slew_reg=0.1, dtype=dtype)
+    u, x = np.ones((1, N, udim), dtype), np.full((1, N, xdim), 6.0, dtype)
+    return base, reg, -u, u, -x, x

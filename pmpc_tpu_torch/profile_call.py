@@ -1,6 +1,6 @@
 """Where one batched solver call spends its time on the card.
 
-    python3 -m pmpc_tpu_torch.profile_call flagship|podscale|podscale64|podscale64_1e-3|unbounded|riccati_flagship|long140|long280|config3|cvar
+    python3 -m pmpc_tpu_torch.profile_call flagship|podscale|podscale64|podscale64_1e-3|unbounded|riccati_flagship|long140|long280|config3|cvar|exp_extras
 
 Builds the named configuration as `chip_smoke.py` does, runs one warm-up call
 and one timed call, then one call under ``torch.profiler`` and prints: the
@@ -13,7 +13,11 @@ iterations of the call (read from a further call built with
 kernels per IPM iteration and horizon stage. ``cvar`` is `chip_smoke.py`
 phase 17's batched CVaR program (`conebatch.solve_problems_cone`, B=64, f64):
 its batched IPM iterations are the K2 launches of the call less its one
-cold-start factor, and it prints the kernels per IPM iteration. Needs a CUDA
+cold-start factor, and it prints the kernels per IPM iteration. ``exp_extras``
+is phase 20's program with exponential cones (B=64, f64, the barrier method):
+its batched Newton steps are the K4 launches less two an SCP iteration (the
+phase-I factor and the final centering test), and it prints the kernels per
+Newton step. Needs a CUDA
 device. The profiler records the device's activity only, and the process
 leaves through ``os._exit`` once the report is flushed: with the host's ops
 recorded too, the profiler's processing took most of a config-3 run's three
@@ -27,8 +31,8 @@ import time
 import torch
 
 from .conebatch import solve_problems_cone
-from .flagship import HEADLINE_KW, baseline_config, cvar_batch, flagship, long_horizon, \
-    podscale, stack_varied
+from .flagship import HEADLINE_KW, baseline_config, cvar_batch, extras_batch, flagship, \
+    long_horizon, podscale, stack_varied
 from .ops import chol_inv
 from .utils import default_device
 
@@ -51,6 +55,8 @@ CONFIGS = {
     "config3": (lambda **kw: baseline_config(3, torch.float32, **kw)[:2], 512, 0.02, None),
     # the batched CVaR program of chip_smoke.py phase 17: problem dicts, f64
     "cvar": (lambda **kw: (None, cvar_batch(64)), 64, None, None),
+    # phase 20's extras program with an exponential cone per particle, f64
+    "exp_extras": (lambda **kw: (None, extras_batch(64, exp_speed=True)), 64, None, None),
 }
 
 
@@ -121,6 +127,15 @@ def main(name: str) -> None:
         print(f"{scp_its} SCP iterations, {n_ipm} batched IPM iterations (K2 launches "
               f"{launches}): {n_kern / scp_its:.0f} kernels an SCP iteration, "
               f"{n_kern / n_ipm:.0f} an IPM iteration")
+    if name == "exp_extras":
+        # one K4 factor a batched Newton step, plus the phase-I start and the
+        # final centering test of every SCP iteration
+        scp_its = int(info["iters"].max())
+        n_newton = launches["inv_cholesky_big"] - 2 * scp_its
+        n_kern = sum(e.count for e in events)
+        print(f"{scp_its} SCP iterations, {n_newton} batched Newton steps (K4 launches "
+              f"{launches}): {n_kern / scp_its:.0f} kernels an SCP iteration, "
+              f"{n_kern / n_newton:.0f} a Newton step")
 
 
 if __name__ == "__main__":

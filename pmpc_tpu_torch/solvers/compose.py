@@ -1,5 +1,4 @@
-"""The composed dense cone program over the condensed consensus variable,
-symmetric cones.
+"""The composed dense cone program over the condensed consensus variable.
 
 Twin of ``pmpc_tpu/solvers/compose.py``. The reference composes every
 constraint flavor into one conic program (``PMPC.jl/src/main.jl:204-317``):
@@ -7,10 +6,17 @@ the k-worst (CVaR) epigraph objective, box bounds (optionally smoothed,
 ``cone_utils.jl:204-232``), user ``extra_cstrs`` splices
 (``cone_utils.jl:99-170``) and per-stage control-norm cones. This module
 assembles the same program densely over the condensed variable (states
-eliminated through ``x = Xmap z + xoff``) and solves it with the NT-scaled
-cone IPM (`coneipm.cone_qp_solve`). Every function works over an explicit
-leading batch axis B; the serial host solve `composed_cone_solve` is the same
-code at B = 1.
+eliminated through ``x = Xmap z + xoff``) and solves it with
+
+- the NT-scaled cone IPM (`coneipm.cone_qp_solve`) when the program has only
+  nonnegative and SOC cones, or
+- the central-path barrier method (`expbarrier.exp_barrier_solve`) when
+  exponential cones are present (logbarrier smoothing, user ``e`` rows),
+  with a scipy host solve (`extras._solve_exp_host`) as the serial solve's
+  fallback when the barrier run does not converge.
+
+Every function works over an explicit leading batch axis B; the serial host
+solve `composed_cone_solve` is the same code at B = 1.
 
 Variable layout of the composed program:
 
@@ -19,11 +25,15 @@ Variable layout of the composed program:
           aux (extras' G_right) ;     user auxiliary variables
           t_1..t_s (smoothing) ]      one epigraph var per smoothed row
 
-``squareplus`` smoothing turns each box row ``g'v <= h`` into the SOC triple
-of ``t >= (beta/2) (r + sqrt(r^2 + alpha^-2))``, r = g'v - h, with cost 1
-on t; the extras' rows stay exact, as in the reference. Exponential cones
-(``logbarrier`` smoothing, user ``e`` rows) are not ported: they raise
-`NotImplementedError` (ROADMAP §1.8, exponential cones).
+Smoothing (``smoothen_linear_inequlities``, ``cone_utils.jl:204-232``)
+turns a row ``g'v <= h``, with a fresh aux ``t`` of objective cost 1, into
+
+- logbarrier: the exp-cone triple of t >= -(1/alpha) log(alpha (h - g'v)),
+- squareplus: the SOC triple of t >= (beta/2) (r + sqrt(r^2 + alpha^-2)),
+  r = g'v - h.
+
+As in the reference, squareplus smooths only the box rows, logbarrier the
+extras' leading linear rows too (``main.jl:301-316``).
 """
 
 from __future__ import annotations
@@ -35,16 +45,11 @@ import torch
 
 from ..ops.linalg import cholesky_factor
 from .coneipm import ConeLP, cone_host_setup, cone_host_state, cone_host_stats, cone_qp_solve
+from .expbarrier import exp_barrier_solve
 from .reduced import CondensedQP, assemble_condensed, particle_H_q
 
 COST_ANCHOR_EPS = 1e-3  # main.jl:221 anchor to pin the y/t degree of freedom
 BIG_BOUND = 1e8  # stand-in for +-inf entries of smoothed one-sided bounds
-EXP_CONES = "ROADMAP §1.8, exponential cones"
-
-
-def _no_exp(what: str):
-    raise NotImplementedError(f"{what} needs exponential cones, which are not "
-                              f"ported yet ({EXP_CONES})")
 
 
 def _blockdiag(X: torch.Tensor) -> torch.Tensor:
@@ -193,6 +198,26 @@ def _usoc_blocks(u_soc_r, nv, M, nc, nf, N, udim, dtype):
     return torch.cat(Gs, 1), torch.cat(hs, 1)
 
 
+def _smooth_logbarrier(G, h, alpha, sm_off, nv):
+    """Rows ``g'v <= h`` (B, m, nv) -> exp-cone triples of the logbarrier
+    epigraph ``t >= -(1/alpha) log(alpha (h - g'v))`` in the convention
+    s = h_3 - G_3 v, exp(s_x/s_z) <= s_y/s_z (the sign flip of the
+    reference's ``make_logbarrier_constraint`` rows, ``cone_utils.jl:
+    173-202``): (B, m, 3, nv) / (B, m, 3). An infinite bound is clamped to
+    BIG_BOUND (its barrier term is then a constant); the aux t_i sit at
+    columns sm_off.., objective cost 1."""
+    B, m = h.shape
+    dt, dev = G.dtype, G.device
+    fin = torch.isfinite(h)
+    Gf = torch.where(fin[..., None], G, 0.0)
+    hf = torch.where(fin, h, BIG_BOUND)
+    Ge = torch.zeros((B, m, 3, nv), dtype=dt, device=dev)
+    Ge[:, :, 0, sm_off:sm_off + m] = alpha * torch.eye(m, dtype=dt, device=dev)
+    Ge[:, :, 1, :] = alpha * Gf
+    he = torch.stack([torch.zeros_like(hf), alpha * hf, torch.ones_like(hf)], -1)
+    return Ge, he
+
+
 def _smooth_squareplus(G, h, alpha, beta, sm_off, nv):
     """Rows ``g'v <= h`` (B, m, nv) -> SOC triples of the squareplus epigraph
     ``t >= (beta/2) (r + sqrt(r^2 + alpha^-2))``, r = g'v - h: (B, m, 3,
@@ -295,19 +320,15 @@ def build_cone_program(cqp: CondensedQP, dims: Tuple[int, int, int], sig: Tuple,
     ``ecs``: per extras tuple (G_left (B, rows, n_full), G_right (B, rows,
     n_aux), h (B, rows), c_left (B, n), c_right (B, n_aux)); the bounds
     (B, M, N, d) tensors or None; ``u_soc_r`` (B, M, N) or None.
-    Returns (P, q, Gl, hl, soc_blocks, Xmap, xoff, lay): soc_blocks is
-    [(sizes, G_rows (B, m, nv), h_rows (B, m)), ...] for `pad_socs`, lay the
-    static `ComposedLayout`. The JAX function also returns the exponential
-    triples (Ge, he); here a program that would have them raises."""
+    Returns (P, q, Gl, hl, soc_blocks, Ge, he, Xmap, xoff, lay): soc_blocks
+    is [(sizes, G_rows (B, m, nv), h_rows (B, m)), ...] for `pad_socs`,
+    Ge / he the stacked exponential-cone triples (B, ne, 3, nv) / (B, ne, 3),
+    lay the static `ComposedLayout`."""
     N, udim, xdim = dims
     B, M, nc, nf = cqp.Hcc.shape[0], cqp.M, cqp.nc, cqp.nf
     NX = cqp.g.shape[-1]
     nu_total, n_full = full_layout_sizes(M, nc, nf, NX)
     dt, dev = cqp.qf.dtype, cqp.qf.device
-    if smooth_method == "logbarrier":
-        _no_exp("logbarrier smoothing on the composed cone program")
-    if any(e for (_, _, e, _) in sig):
-        _no_exp("extra_cstrs with exponential-cone rows (e > 0)")
     lay = layout_sizes(M, nc, nf, NX, sig, ubounds[0] is not None, xbounds[0] is not None,
                        smooth_method, cvar is not None)
     nz, nv = lay.nz, lay.nv
@@ -334,7 +355,9 @@ def build_cone_program(cqp: CondensedQP, dims: Tuple[int, int, int], sig: Tuple,
     Gl_rows: List[torch.Tensor] = []
     hl_rows: List[torch.Tensor] = []
     soc_blocks: List[Tuple[Tuple[int, ...], torch.Tensor, torch.Tensor]] = []
-    to_smooth_G: List[torch.Tensor] = []  # rows deferred to the smoother
+    exp_G: List[torch.Tensor] = []
+    exp_h: List[torch.Tensor] = []
+    to_smooth_G: List[torch.Tensor] = []  # rows deferred to the smoothers
     to_smooth_h: List[torch.Tensor] = []
 
     if cvar is not None:
@@ -352,7 +375,7 @@ def build_cone_program(cqp: CondensedQP, dims: Tuple[int, int, int], sig: Tuple,
     # -- box rows (plain, or deferred to smoothing) ----------------------------
     Gb, hb = _box_rows(cqp, ubounds, xbounds, nv, Xmap, xoff, N, udim)
     if Gb.shape[1]:
-        if smooth_method == "squareplus":
+        if smooth_method in ("logbarrier", "squareplus"):
             to_smooth_G.append(Gb)
             to_smooth_h.append(hb)
         else:
@@ -389,25 +412,42 @@ def build_cone_program(cqp: CondensedQP, dims: Tuple[int, int, int], sig: Tuple,
         if n_aux and c_right.shape[-1]:
             q_full[:, aux_off:aux_off + n_aux] += c_right
         if l:
-            Gl_rows.append(G_full[:, :l])
-            hl_rows.append(h_adj[:, :l])
+            if smooth_method == "logbarrier":
+                # the reference smooths the extras' leading linear rows too
+                # (main.jl:301-316)
+                to_smooth_G.append(G_full[:, :l])
+                to_smooth_h.append(h_adj[:, :l])
+            else:
+                Gl_rows.append(G_full[:, :l])
+                hl_rows.append(h_adj[:, :l])
         nq = sum(qsizes)
         if nq:
             soc_blocks.append((qsizes, G_full[:, l:l + nq], h_adj[:, l:l + nq]))
+        # exp cones: e triples of rows after the linear and SOC sections,
+        # s = h - Gv with exp(s_x/s_z) <= s_y/s_z, s_z > 0
+        r = l + nq
+        if e:
+            exp_G.append(G_full[:, r:r + 3 * e].reshape(B, e, 3, nv))
+            exp_h.append(h_adj[:, r:r + 3 * e].reshape(B, e, 3))
         aux_off += n_aux
 
-    # -- squareplus reformulation of the deferred rows --------------------------
+    # -- smoothing reformulation of the deferred rows ----------------------------
     if to_smooth_G:
         Gs = torch.cat(to_smooth_G, 1)
         hs = torch.cat(to_smooth_h, 1)
         assert Gs.shape[1] == lay.n_sm, (Gs.shape, lay)
         alpha = 1.0 if smooth_alpha is None else smooth_alpha
-        beta = 1.0 if smooth_beta is None else smooth_beta
         # the smoothing aux vars carry objective cost 1 (main.jl:260-261)
         q_full[:, lay.sm_off:] = 1.0
-        Gq_s, hq_s = _smooth_squareplus(Gs, hs, alpha, beta, lay.sm_off, nv)
-        m = Gq_s.shape[1]
-        soc_blocks.append(((3,) * m, Gq_s.reshape(B, m * 3, nv), hq_s.reshape(B, m * 3)))
+        if smooth_method == "logbarrier":
+            Ge_s, he_s = _smooth_logbarrier(Gs, hs, alpha, lay.sm_off, nv)
+            exp_G.append(Ge_s)
+            exp_h.append(he_s)
+        else:
+            beta = 1.0 if smooth_beta is None else smooth_beta
+            Gq_s, hq_s = _smooth_squareplus(Gs, hs, alpha, beta, lay.sm_off, nv)
+            m = Gq_s.shape[1]
+            soc_blocks.append(((3,) * m, Gq_s.reshape(B, m * 3, nv), hq_s.reshape(B, m * 3)))
 
     if cvar is not None:
         # normalize the LP objective by the particle-cost scale so the IPM
@@ -418,7 +458,9 @@ def build_cone_program(cqp: CondensedQP, dims: Tuple[int, int, int], sig: Tuple,
 
     Gl = torch.cat(Gl_rows, 1) if Gl_rows else torch.zeros((B, 0, nv), dtype=dt, device=dev)
     hl = torch.cat(hl_rows, 1) if hl_rows else torch.zeros((B, 0), dtype=dt, device=dev)
-    return P, q_full, Gl, hl, soc_blocks, Xmap, xoff, lay
+    Ge = torch.cat(exp_G, 1) if exp_G else torch.zeros((B, 0, 3, nv), dtype=dt, device=dev)
+    he = torch.cat(exp_h, 1) if exp_h else torch.zeros((B, 0, 3), dtype=dt, device=dev)
+    return P, q_full, Gl, hl, soc_blocks, Ge, he, Xmap, xoff, lay
 
 
 # -- solves -----------------------------------------------------------------------
@@ -432,16 +474,36 @@ def _composed_symmetric_device(cqp, dims, sig, ubounds, xbounds, ecs, H_extra, q
     the NT-scaled cone IPM: (X, U, aux (B, nv - nz), stats, (v, z))."""
     N, udim, xdim = dims
     M, nc, nf = cqp.M, cqp.nc, cqp.nf
-    P, q, Gl, hl, soc_blocks, Xmap, xoff, lay = build_cone_program(
+    P, q, Gl, hl, soc_blocks, Ge, he, Xmap, xoff, lay = build_cone_program(
         cqp, dims, sig, ecs, ubounds, xbounds, smooth_method=smooth_method,
         smooth_alpha=smooth_alpha, smooth_beta=smooth_beta, u_soc_r=u_soc_r,
         H_extra=H_extra, q_extra=q_extra, cvar=cvar)
+    assert Ge.shape[1] == 0  # exponential cones take `_composed_exp_device`
     Gq, hq = pad_socs(soc_blocks, lay.nv, q.dtype, q.device, q.shape[0])
     v, s, z, stats = cone_qp_solve(ConeLP(P=P, q=q, Gl=Gl, hl=hl, Gq=Gq, hq=hq), iters=iters,
                                    tol_exp=tol_exp, kappa=kappa, tol_dynamic=tol_dynamic,
                                    warm=warm)
     X, U = recover_XU(v[:, :lay.nz], Xmap, xoff, M, nc, nf, N, udim, xdim)
     return X, U, v[:, lay.nz:], stats, (v, z)
+
+
+def _composed_exp_device(cqp, dims, sig, ubounds, xbounds, ecs, H_extra, q_extra,
+                         smooth_method, smooth_alpha, smooth_beta, u_soc_r, cvar,
+                         tol_exp: int):
+    """Assemble the composed programs with exponential cones and solve them
+    with the central-path barrier method: (X, U, v (B, nv), stats, (zeros
+    shaped as the nonnegative and the padded SOC duals)); the zeros stand
+    in for the duals of a warm tuple, which the barrier method has not."""
+    N, udim, xdim = dims
+    M, nc, nf = cqp.M, cqp.nc, cqp.nf
+    P, q, Gl, hl, soc_blocks, Ge, he, Xmap, xoff, lay = build_cone_program(
+        cqp, dims, sig, ecs, ubounds, xbounds, smooth_method=smooth_method,
+        smooth_alpha=smooth_alpha, smooth_beta=smooth_beta, u_soc_r=u_soc_r,
+        H_extra=H_extra, q_extra=q_extra, cvar=cvar)
+    Gq, hq = pad_socs(soc_blocks, lay.nv, q.dtype, q.device, q.shape[0])
+    v, stats = exp_barrier_solve(P, q, Gl, hl, Gq, hq, Ge, he, tol_exp=tol_exp)
+    X, U = recover_XU(v[:, :lay.nz], Xmap, xoff, M, nc, nf, N, udim, xdim)
+    return X, U, v, stats, (torch.zeros_like(hl), torch.zeros_like(hq))
 
 
 def _t(a, dt, dev):
@@ -454,16 +516,25 @@ def composed_cone_solve(cqp: CondensedQP, N: int, udim: int, xdim: int, u_l, u_u
                         q_extra=None, u_soc_r=None, smooth_method: str = "",
                         smooth_alpha=None, smooth_beta=None,
                         cvar: Optional[CvarParts] = None):
-    """The serial host solve of the composed cone program (symmetric
-    cones): one problem, the batched code at B = 1. Returns numpy (X (M, N,
-    xdim), U (M, N, udim), data).
+    """The serial host solve of the composed cone program: one problem, the
+    batched code at B = 1. Returns numpy (X (M, N, xdim), U (M, N, udim),
+    data).
 
     ``cqp`` (and ``H_extra``, ``q_extra``, ``cvar``) carry a leading batch
     axis of 1 and fix the device and dtype; the bounds (M, N, d), the radii
     (M, N) and the ``extra_cstrs`` tuples are numpy. ``data`` has the JAX
     function's keys: solver_state (``cone_warm``, the (v, zl, zq) tuple as
     numpy, and ``cone_warm_key``), aux, ipm_mu, ipm_iters, ipm_converged,
-    ipm_failed, and ts (the epigraph variables y, t) with CVaR."""
+    ipm_failed, and ts (the epigraph variables y, t) with CVaR.
+
+    A program with exponential cones (logbarrier smoothing, user ``e``
+    rows) runs the central-path barrier method, in place unless
+    ``settings["exp_device"]`` is False; where that run does not converge,
+    or is not asked for, the scipy host solve `extras._solve_exp_host`
+    takes it (``data["exp_host_fallback"]``). Its ``data`` has the JAX
+    function's keys of that branch: solver_state (passed through), aux,
+    ipm_converged and exp_device / ipm_mu, or exp_host_fallback /
+    ipm_failed."""
     from .extras import _canon_extras  # extras imports this module
 
     settings = settings or {}
@@ -476,14 +547,16 @@ def composed_cone_solve(cqp: CondensedQP, N: int, udim: int, xdim: int, u_l, u_u
                          "composed_solve_batch_device takes a batch")
     dims = (N, udim, xdim)
     sig, ecs = _canon_extras(extra_cstrs, n_full)
-    if smooth_method == "logbarrier" or any(e for (_, _, e, _) in sig):
-        _no_exp("composed_cone_solve with logbarrier smoothing or user e rows")
     ecs_t = tuple(tuple(_t(a, dt, dev) for a in ec) for ec in ecs)
     ubounds = (_t(u_l, dt, dev), _t(u_u, dt, dev))
     xbounds = (_t(x_l, dt, dev), _t(x_u, dt, dev))
     usoc = _t(u_soc_r, dt, dev)
     lay = layout_sizes(M, nc, nf, NX, sig, u_l is not None, x_l is not None,
                        smooth_method, cvar is not None)
+    if smooth_method == "logbarrier" or any(e for (_, _, e, _) in sig):
+        return _composed_exp_solve(cqp, dims, sig, ecs_t, ubounds, xbounds, H_extra, q_extra,
+                                   smooth_method, smooth_alpha, smooth_beta, usoc, cvar,
+                                   settings, lay)
 
     # the shared host-cone prelude: early-exit iteration cap, inexact-Newton
     # forcing from the SCP residual, warm start keyed on the exact signature
@@ -512,6 +585,50 @@ def composed_cone_solve(cqp: CondensedQP, N: int, udim: int, xdim: int, u_l, u_u
     return X[0].cpu().numpy(), U[0].cpu().numpy(), data
 
 
+def _composed_exp_solve(cqp, dims, sig, ecs, ubounds, xbounds, H_extra, q_extra,
+                        smooth_method, smooth_alpha, smooth_beta, usoc, cvar, settings, lay):
+    """The exponential-cone branch of `composed_cone_solve`: the barrier run
+    (f64-class accuracy at mu = 10^ipm_tol_exp), the scipy host solve where
+    it does not converge or ``exp_device`` is False, as in the JAX package.
+    A non-finite point from the barrier run on a CUDA tensor raises instead:
+    the method keeps its last finite point, so only a faulty factor gives
+    one there, and the host solve would hide it."""
+    from .extras import _solve_exp_host  # extras imports this module
+
+    N, udim, xdim = dims
+    M, nc, nf = cqp.M, cqp.nc, cqp.nf
+    f64 = cqp.qf.dtype == torch.float64
+    tol_exp = int(settings.get("ipm_tol_exp", -8 if f64 else -5))
+    v, extra = None, {}
+    if bool(settings.get("exp_device", True)):
+        X, U, v_dev, stats, _ = _composed_exp_device(
+            cqp, dims, sig, ubounds, xbounds, ecs, H_extra, q_extra, smooth_method,
+            smooth_alpha, smooth_beta, usoc, cvar, tol_exp=tol_exp)
+        finite = bool(torch.isfinite(v_dev).all())
+        if not finite and v_dev.is_cuda:
+            raise RuntimeError("the exponential-cone barrier method returned a non-finite "
+                               "point on the card (a factor kernel fault?)")
+        if bool(stats["converged"][0]) and finite:
+            v = v_dev[0].cpu().numpy()
+            extra = dict(exp_device=True, ipm_mu=float(stats["mu"][0]))
+    if v is None:
+        P, q, Gl, hl, soc_blocks, Ge, he, Xmap, xoff, _ = build_cone_program(
+            cqp, dims, sig, ecs, ubounds, xbounds, smooth_method=smooth_method,
+            smooth_alpha=smooth_alpha, smooth_beta=smooth_beta, u_soc_r=usoc,
+            H_extra=H_extra, q_extra=q_extra, cvar=cvar)
+        npy = lambda a: a[0].cpu().numpy()
+        blocks = [(sizes, npy(G), npy(h)) for sizes, G, h in soc_blocks]
+        exp_blocks = [(npy(Ge)[i], npy(he)[i]) for i in range(Ge.shape[1])]
+        v, host_ok = _solve_exp_host(npy(P), npy(q), npy(Gl), npy(hl), blocks, exp_blocks)
+        extra = dict(exp_host_fallback=True, ipm_failed=not bool(host_ok))
+        w = torch.as_tensor(v[:lay.nz], dtype=cqp.qf.dtype, device=cqp.qf.device)[None]
+        X, U = recover_XU(w, Xmap, xoff, M, nc, nf, N, udim, xdim)
+    data = dict(solver_state=settings.get("solver_state"),
+                ipm_converged=not extra.get("ipm_failed", False),
+                aux=np.asarray(v)[lay.nz:], **extra)
+    return X[0].cpu().numpy(), U[0].cpu().numpy(), data
+
+
 # -- the scenario-batched solve -------------------------------------------------------
 
 
@@ -535,7 +652,10 @@ def composed_solve_batch_device(probs, bounds, ecs, extras_q, dims, sig, smooth_
                                 has_cvar: bool = False, iters: int = 35, tol_exp: int = -5,
                                 kappa: float = 1e-7, tol_dynamic=None, warm=None):
     """B same-signature composed cone problems at once: per-problem condensed
-    assembly, program build and NT cone IPM over the batch axis.
+    assembly, program build and NT cone IPM over the batch axis; a signature
+    with exponential cones (logbarrier smoothing, user ``e`` rows) runs the
+    central-path barrier method instead, whose warm tuple is (v, zeros,
+    zeros) and whose ``warm`` input is ignored.
 
     ``probs``: dict of (B, M, ...) tensors (x0, f, fx, fu, X_prev, U_prev,
     Q, R, X_ref, U_ref, reg_x, reg_u, slew_reg, slew_reg0, slew_um1);
@@ -570,9 +690,19 @@ def composed_solve_batch_device(probs, bounds, ecs, extras_q, dims, sig, smooth_
     if "Hf" in extras_q:
         H_extra, q_extra = terminal_cross_cost(cqp, N=N, xdim=xdim, Hf=extras_q["Hf"],
                                                hf=extras_q.get("hf"))
+    ubounds = (bounds.get("u_l"), bounds.get("u_u"))
+    xbounds = (bounds.get("x_l"), bounds.get("x_u"))
+    lay = layout_sizes(M, nc, cqp.nf, cqp.g.shape[-1], sig, ubounds[0] is not None,
+                       xbounds[0] is not None, smooth_method, has_cvar)
+    if any(e for (_, _, e, _) in sig) or (smooth_method == "logbarrier" and lay.n_sm):
+        # exponential cones: the central-path barrier method, which has no
+        # warm start; neutral placeholders keep the warm tuple's shapes
+        X, U, v, stats, (zl, zq) = _composed_exp_device(
+            cqp, dims, sig, ubounds, xbounds, ecs, H_extra, q_extra, smooth_method,
+            smooth_alpha, smooth_beta, bounds.get("u_soc_r"), cvar, tol_exp=tol_exp)
+        return X, U, v[:, lay.nz:], stats, (v, zl, zq)
     X, U, aux, stats, (v, z) = _composed_symmetric_device(
-        cqp, dims, sig, (bounds.get("u_l"), bounds.get("u_u")),
-        (bounds.get("x_l"), bounds.get("x_u")), ecs, H_extra, q_extra, smooth_method,
+        cqp, dims, sig, ubounds, xbounds, ecs, H_extra, q_extra, smooth_method,
         smooth_alpha, smooth_beta, bounds.get("u_soc_r"), cvar, iters=iters, tol_exp=tol_exp,
         kappa=kappa, tol_dynamic=tol_dynamic, warm=warm)
     return X, U, aux, stats, (v, z[0], z[1])

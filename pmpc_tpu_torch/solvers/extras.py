@@ -10,8 +10,9 @@ with ``G_left`` over the canonical consensus variable ``z_full = [u_cons;
 u_free_1..M; x_1..M]``, ``G_right`` over fresh auxiliary variables, ``l``
 leading nonnegative rows, ``q`` a list of SOC sizes and ``e`` a count of
 3-dim exponential cones. The program assembly and solve live in
-`solvers.compose`. The scipy host solve of programs with exponential cones
-(``_solve_exp_host``) is not ported (ROADMAP §1.8, exponential cones).
+`solvers.compose`; this module keeps the host pieces: tuple validation,
+stage-cone detection, the terminal cross cost and the scipy solve of programs
+with exponential cones (`_solve_exp_host`), the serial exp branch's fallback.
 """
 
 from __future__ import annotations
@@ -81,6 +82,55 @@ def _canon_extras(extra_cstrs, n_full) -> Tuple[Tuple, Tuple]:
         sig.append((int(l), qsizes, int(e), int(G_right.shape[1])))
         arrays.append((G_left, G_right, h, c_left, c_right))
     return tuple(sig), tuple(arrays)
+
+
+def _solve_exp_host(H, q, Gl, hl, soc_blocks, exp_blocks):
+    """Host (scipy trust-constr) solve of one dense cone QP with exp cones,
+    numpy in and out: (v, converged).
+
+    Exp cone (ECOS convention, ``cone_utils.jl:184-188``): the slack triple
+    s = h - Gv lies in closure{(x, y, z): exp(x/z) <= y/z, z > 0}, i.e.
+    z log(y/z) >= x with y, z > 0: a concave constraint function, so the
+    program stays convex."""
+    import scipy.optimize as sopt
+
+    nv = q.shape[0]
+    H, q = np.asarray(H, float), np.asarray(q, float)
+    cons = []
+    Gl, hl = np.asarray(Gl, float), np.asarray(hl, float)
+    if Gl.shape[0]:
+        cons.append(sopt.LinearConstraint(Gl, -np.inf, hl))
+    for qsizes, Gc, hc in soc_blocks:
+        Gc, hc = np.asarray(Gc, float), np.asarray(hc, float)
+        r = 0
+        for sz in qsizes:
+            G, h = Gc[r:r + sz], hc[r:r + sz]
+            r += sz
+
+            def soc_fun(v, G=G, h=h):
+                s = h - G @ v
+                return s[0] - np.linalg.norm(s[1:])
+
+            cons.append(sopt.NonlinearConstraint(soc_fun, 0.0, np.inf))
+    eps = 1e-12
+    for G, h in exp_blocks:
+        G, h = np.asarray(G, float), np.asarray(h, float)
+        # domain: y, z > 0 (linear rows), cone: z log(y/z) - x >= 0
+        cons.append(sopt.LinearConstraint(-G[1:], eps - h[1:], np.inf))
+
+        def exp_fun(v, G=G, h=h):
+            s = h - G @ v
+            y, z = max(s[1], eps), max(s[2], eps)
+            return z * np.log(y / z) - s[0]
+
+        cons.append(sopt.NonlinearConstraint(exp_fun, 0.0, np.inf))
+    res = sopt.minimize(
+        lambda v: 0.5 * v @ H @ v + q @ v, np.zeros(nv),
+        jac=lambda v: H @ v + q,
+        constraints=cons, method="trust-constr",
+        options=dict(maxiter=5000, gtol=1e-10, xtol=1e-12))
+    # status 1 (gtol) / 2 (xtol) are converged; 0 (maxiter) / 3 are not
+    return res.x, res.status in (1, 2) and np.isfinite(res.x).all()
 
 
 def split_stage_u_cones(sig, arrays, M, N, Nc, udim):

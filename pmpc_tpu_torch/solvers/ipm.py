@@ -36,6 +36,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..ops.linalg import spd_apply, spd_factor
@@ -636,6 +637,30 @@ def ipm_core(
     stats = dict(mu=state.mu, iters=state.iters, converged=state.ok,
                  failed=failed, s=state.s, lam=state.lam, sq=state.sq, zq=state.zq)
     return state.uc, state.uf, stats
+
+
+def _layout_bounds(u_l, u_u, x_l, x_u, M, N, NX, nc, nf, udim, dtype, device=None
+                   ) -> BoxBounds:
+    """(M, N, udim) / (M, N, xdim) numpy bound arrays (or None) in the
+    consensus layout, +-inf where absent, as `BoxBounds` of one problem (a
+    leading batch axis of 1) in the numpy ``dtype`` on ``device``. The
+    consensus control bounds are particle 0's (``lqp_utils.jl:323-331``)."""
+    inf = np.inf
+
+    def flat_u(b, fill):
+        if b is None:
+            return np.full((M, N * udim), fill, dtype=dtype)
+        return np.asarray(b, dtype=dtype).reshape(M, N * udim)
+
+    def flat_x(b, fill):
+        if b is None:
+            return np.full((M, NX), fill, dtype=dtype)
+        return np.asarray(b, dtype=dtype).reshape(M, NX)
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)[None]
+    ul, uu = flat_u(u_l, -inf), flat_u(u_u, inf)
+    return BoxBounds(lo_c=t(ul[0, :nc]), hi_c=t(uu[0, :nc]), lo_f=t(ul[:, nc:]),
+                     hi_f=t(uu[:, nc:]), lo_x=t(flat_x(x_l, -inf)), hi_x=t(flat_x(x_u, inf)))
 
 
 def layout_socs(u_soc_r: torch.Tensor, Nc: int) -> SocSpec:

@@ -1,16 +1,18 @@
 """The composed cone program of the port (`solvers.compose`, `solvers.extras`,
 `solvers.cvar`) against the JAX package, f64, on the CPU.
 
-(a) `build_cone_program`'s (P, q, Gl, hl, Gq, hq) against the JAX
-composer's, lane for lane, to 1e-12, for every symmetric feature: the CVaR
-epigraph, boxes with one-sided infinite bounds, state boxes, control-norm
-cones, user extras with auxiliary variables and ``c_left`` of either length,
-the cross-particle terminal cost, squareplus smoothing; the exponential-cone
-signatures raise.
+(a) `build_cone_program`'s (P, q, Gl, hl, Gq, hq, Ge, he) against the JAX
+composer's, lane for lane, to 1e-12, for every feature: the CVaR epigraph,
+boxes with one-sided infinite bounds, state boxes, control-norm cones, user
+extras with auxiliary variables and ``c_left`` of either length, the
+cross-particle terminal cost, squareplus and logbarrier smoothing, user
+exponential-cone rows.
 (b) the serial host solve `composed_cone_solve` on tests/test_cvar.py's and
 tests/test_compose.py's squareplus instances against the JAX one (which
 `affine_solve_np` reaches): U to 1e-7, the same ``data`` keys, equal IPM
-iteration counts, and a warm start from the JAX solve's ``solver_state``.
+iteration counts, and a warm start from the JAX solve's ``solver_state``;
+its exponential-cone branch on tests/test_extras.py's instances, on the
+barrier method (``exp_device``) and on the scipy host solve.
 (c) ROADMAP §3 F5: tests/test_fuzz_socdetect.py's seed 801, which HEAD's
 structured route fails (R1), through the port's composed route against the
 JAX composed route (``extras_structured=False``).
@@ -91,6 +93,22 @@ def _cqps(p, Nc, cvar):
     return t, js, cv_t, cvs
 
 
+def _exp_extras(rng, M, N, Nc, xdim, udim):
+    """B user extras tuples with exponential cones: one linear row, then two
+    exp triples (y >= z exp(x / z)) around a feasible point, an auxiliary
+    variable in the first triple's y with a cost."""
+    nz = Nc * udim + M * (N - Nc) * udim
+    n_full = nz + M * N * xdim
+    out = []
+    for _ in range(B):
+        G = 0.2 * rng.normal(size=(7, n_full))
+        h = np.array([1.0, -1.0, 1.0, 1.0, -0.5, 2.0, 1.5])
+        G_r = np.zeros((7, 1))
+        G_r[2, 0] = -1.0
+        out.append((1, [], 2, G, G_r, h, np.zeros(n_full), np.array([0.5])))
+    return out, n_full
+
+
 def _extras(rng, M, N, Nc, xdim, udim, c_left_len):
     """B user extras tuples of one signature: 2 linear rows, a 3-cone and a
     4-cone over controls and states, two auxiliary variables with costs,
@@ -115,6 +133,9 @@ CASES = {
                                                          "extras_full", "hf")),
     "extras_short_c_left_squareplus": (53, 2, 6, 2, False, ("ubox", "extras_nz",
                                                             "squareplus")),
+    "logbarrier_boxes_states_extras": (54, 2, 5, 2, False, ("ubox_onesided", "xbox",
+                                                            "extras_full", "logbarrier")),
+    "cvar_exp_rows_usoc": (55, 3, 5, 5, True, ("ubox", "usoc", "exp_rows")),
 }
 
 
@@ -138,9 +159,12 @@ def test_build_cone_program_matches_jax(case):
         r[:, :, 1] = np.inf
     sig, ecs_t, ecs_j = (), (), [() for _ in range(B)]
     nz = Nc * udim + M * (N - Nc) * udim
-    if any(f.startswith("extras") for f in feats):
-        raw, n_full = _extras(rng, M, N, Nc, xdim, udim,
-                              nz if "extras_nz" in feats else nz + M * N * xdim)
+    if any(f.startswith("extras") or f == "exp_rows" for f in feats):
+        if "exp_rows" in feats:
+            raw, n_full = _exp_extras(rng, M, N, Nc, xdim, udim)
+        else:
+            raw, n_full = _extras(rng, M, N, Nc, xdim, udim,
+                                  nz if "extras_nz" in feats else nz + M * N * xdim)
         canon = [text._canon_extras([e], n_full) for e in raw]
         sig = canon[0][0]
         assert all(c[0] == sig for c in canon) and sig == jext._canon_extras(raw[:1], n_full)[0]
@@ -150,7 +174,7 @@ def test_build_cone_program_matches_jax(case):
     Hf = None
     if "hf" in feats:
         Hf = 0.3 * np.eye(M * xdim)
-    smooth = "squareplus" if "squareplus" in feats else ""
+    smooth = next((f for f in feats if f in ("squareplus", "logbarrier")), "")
     kw = dict(smooth_alpha=20.0, smooth_beta=2.0) if smooth else {}
     H_t = q_t = None
     if Hf is not None:
@@ -162,7 +186,7 @@ def test_build_cone_program_matches_jax(case):
         (None if xl is None else tt(xl), None if xu is None else tt(xu)),
         smooth_method=smooth, u_soc_r=None if r is None else tt(r), H_extra=H_t,
         q_extra=q_t, cvar=t_cv, **kw)
-    P, q, Gl, hl, blocks, Xmap, xoff, lay = T
+    P, q, Gl, hl, blocks, Ge, he, Xmap, xoff, lay = T
     Gq, hq = tcomp.pad_socs(blocks, lay.nv, P.dtype, B=B)
     for b in range(B):
         H_j = q_j = None
@@ -171,31 +195,46 @@ def test_build_cone_program_matches_jax(case):
             close(H_t[b], H_j, 1e-12)
             close(q_t[b], q_j, 1e-12)
         jb = lambda a: None if a is None else jnp.asarray(a[b])
-        Pj, qj, Glj, hlj, bj, Ge, he, Xmj, xoj, layj = jcomp.build_cone_program(
+        Pj, qj, Glj, hlj, bj, Gej, hej, Xmj, xoj, layj = jcomp.build_cone_program(
             j_cqps[b], (N, udim, xdim), sig, ecs_j[b], (jb(ul), jb(ub)), (jb(xl), jb(xu)),
             smooth_method=smooth, u_soc_r=jb(r), H_extra=H_j, q_extra=q_j,
             cvar=None if j_cvs is None else j_cvs[b], **kw)
-        assert Ge.shape[0] == 0 and tuple(lay) == tuple(layj)
+        assert Ge.shape[1:] == Gej.shape and tuple(lay) == tuple(layj)
         Gqj, hqj = jcomp.pad_socs(bj, layj.nv, Pj.dtype)
         for a, aj in ((P, Pj), (q, qj), (Gl, Glj), (hl, hlj), (Gq, Gqj), (hq, hqj),
-                      (Xmap, Xmj), (xoff, xoj)):
+                      (Ge, Gej), (he, hej), (Xmap, Xmj), (xoff, xoj)):
             close(a[b], aj, 1e-12)
     assert torch.isfinite(hl).all()  # infinite bounds were neutralized
     if cvar:
         assert lay.n_epi == M + 1 and hq.shape[-1] == Nc * udim + 2
-    if smooth:
-        assert lay.n_sm == 2 * nz
+    if smooth == "squareplus":
+        assert lay.n_sm == 2 * nz and Ge.shape[1] == 0
+    if smooth == "logbarrier":  # the box rows (controls and states) and the linear extras
+        assert lay.n_sm == Ge.shape[1] == 2 * nz + 2 * M * N * xdim + 2
+    if "exp_rows" in feats:
+        assert Ge.shape[1] == 2 and lay.n_sm == 0
 
 
 def test_exponential_cone_signatures_raise():
+    """The exponential-cone signatures that the port refused before it had
+    the barrier method now build: logbarrier without any row to smooth is the
+    plain program, one ``e`` triple gives one exp cone; a triple count that
+    disagrees with the rows still raises, as in the JAX package."""
     p, rng = _problems(5, 2, 4)
     t_cqp = _cqps(p, 2, False)[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP §1.8, exponential cones"):
-        tcomp.build_cone_program(t_cqp, (4, 2, 3), (), (), (None, None), (None, None),
-                                 smooth_method="logbarrier")
-    with pytest.raises(NotImplementedError, match="ROADMAP §1.8, exponential cones"):
-        tcomp.build_cone_program(t_cqp, (4, 2, 3), ((0, (), 1, 0),), ((None,) * 5,),
-                                 (None, None), (None, None))
+    out = tcomp.build_cone_program(t_cqp, (4, 2, 3), (), (), (None, None), (None, None),
+                                   smooth_method="logbarrier")
+    assert out[5].shape == (B, 0, 3, out[-1].nv) and out[-1].n_sm == 0
+    nz = 2 * 2 + 2 * 2 * 2
+    n_full = nz + 2 * 4 * 3
+    e_row = (0, [], 1, np.zeros((3, n_full)), np.zeros((3, 0)), np.array([0.0, 1.0, 1.0]),
+             np.zeros(n_full), np.zeros(0))
+    sig, arr = text._canon_extras([e_row], n_full)
+    ecs = tuple(tuple(torch.from_numpy(np.stack([a] * B)) for a in ec) for ec in arr)
+    out = tcomp.build_cone_program(t_cqp, (4, 2, 3), sig, ecs, (None, None), (None, None))
+    close(out[6], np.broadcast_to([0.0, 1.0, 1.0], (B, 1, 3)), 1e-15)
+    with pytest.raises(ValueError, match="e=2"):
+        text._canon_extras([(0, [], 2) + e_row[3:]], n_full)
 
 
 # ---- (b) the serial solve -------------------------------------------------------
@@ -294,6 +333,92 @@ def test_serial_squareplus_instance_of_test_compose():
                          smooth_beta=4.0, **box)
     _hold_serial(out_t, out_j)
     assert out_t[2]["aux"].shape == (2 * (Nc * udim + M * (N - Nc) * udim),)
+
+
+def _exp_instance(case):
+    """tests/test_extras.py::test_exp_cone_extra_constraint's instance (one
+    exp cone: t >= -(1/a) log(a (b - u_0,0)), cost t) or
+    test_exp_device_with_mixed_cone_families' (that cone on u_0,1, the SOC
+    ||u_1|| <= 0.8 and boxes +-1.2): (p, Nc, extras, box)."""
+    seed, N, alpha, b_lim, col = (11, 5, 25.0, 0.2, 0) if case == "exp_row" \
+        else (13, 4, 20.0, 0.25, 1)
+    M, xdim, udim, Nc = 1, 3, 2, N
+    p = oracle.random_problem(np.random.default_rng(seed), M=M, N=N, xdim=xdim, udim=udim)
+    n_full = Nc * udim + M * N * xdim
+    g = np.zeros(n_full)
+    g[col] = 1.0
+    ec = [(0, [], 1, np.vstack([np.zeros(n_full), alpha * g, np.zeros(n_full)]),
+           np.array([[alpha], [0.0], [0.0]]), np.array([0.0, alpha * b_lim, 1.0]),
+           np.zeros(n_full), np.array([1.0]))]
+    box = {}
+    if case == "mixed":
+        G_soc = np.zeros((1 + udim, n_full))
+        for r in range(udim):
+            G_soc[1 + r, udim + r] = -1.0
+        ec.append((0, [1 + udim], 0, G_soc, np.zeros((1 + udim, 0)),
+                   np.concatenate([[0.8], np.zeros(udim)]), np.zeros(n_full), np.zeros(0)))
+        box = dict(u_l=-1.2 * np.ones((M, N, udim)), u_u=1.2 * np.ones((M, N, udim)))
+    return p, Nc, ec, box
+
+
+@pytest.mark.parametrize("case", ["exp_row", "mixed"])
+def test_serial_exponential_cone_branch(case):
+    """The exponential-cone branch of `composed_cone_solve` against the JAX
+    one on tests/test_extras.py's instances: the barrier run (``exp_device``,
+    the default) to 1e-7 in U, the scipy host solve (``exp_device=False``)
+    to 1e-6 (trust-constr's own stopping tolerance; both packages run it on
+    programs equal to ~1e-15); the same ``data`` keys and flags."""
+    p, Nc, ec, box = _exp_instance(case)
+    for exp_device, tol in ((True, 1e-7), (False, 1e-6)):
+        ss = dict(extra_cstrs=ec, exp_device=exp_device)
+        X, U, d = _port_serial(p, Nc, ss, **box)
+        Xj, Uj, dj = _jax_serial(p, Nc, ss, **box)
+        np.testing.assert_allclose(U, Uj, atol=tol, rtol=0)
+        np.testing.assert_allclose(X, Xj, atol=tol, rtol=0)
+        assert set(d) == set(dj)
+        assert d.get("exp_device") == dj.get("exp_device") == (True if exp_device else None)
+        assert d.get("exp_host_fallback") == dj.get("exp_host_fallback")
+        assert d["ipm_converged"] and dj["ipm_converged"]
+        np.testing.assert_allclose(d["aux"], dj["aux"], atol=tol, rtol=0)
+        if exp_device:
+            assert d["ipm_mu"] == dj["ipm_mu"]
+
+
+def _nan_exp_device(monkeypatch, to_device=None):
+    """Make the barrier run of `composed_cone_solve` return a NaN point (on
+    ``to_device`` if given), as a faulty factor would."""
+    real = tcomp._composed_exp_device
+
+    def faulty(*a, **k):
+        X, U, v, stats, rest = real(*a, **k)
+        v = torch.full_like(v, torch.nan)
+        return X, U, v if to_device is None else v.to(to_device), stats, rest
+
+    monkeypatch.setattr(tcomp, "_composed_exp_device", faulty)
+
+
+def test_serial_exponential_cone_branch_non_finite_on_the_cpu(monkeypatch):
+    """ROADMAP §3 F11, on the CPU: a non-finite barrier point goes to the
+    scipy host solve (``exp_host_fallback``), as in the JAX package, and the
+    answer is the host solve's (1e-6 against the JAX ``exp_device=False``)."""
+    p, Nc, ec, box = _exp_instance("exp_row")
+    _nan_exp_device(monkeypatch)
+    X, U, d = _port_serial(p, Nc, dict(extra_cstrs=ec), **box)
+    _, Uj, dj = _jax_serial(p, Nc, dict(extra_cstrs=ec, exp_device=False), **box)
+    assert d.get("exp_host_fallback") and "exp_device" not in d and d["ipm_converged"]
+    np.testing.assert_allclose(U, Uj, atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_serial_exponential_cone_branch_non_finite_on_the_card_raises(monkeypatch):
+    """ROADMAP §3 F11, on the card: a non-finite barrier point raises, so a
+    factor kernel fault is not served by the host solve."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    p, Nc, ec, box = _exp_instance("exp_row")
+    _nan_exp_device(monkeypatch, to_device="cuda")
+    with pytest.raises(RuntimeError, match="non-finite point on the card"):
+        _port_serial(p, Nc, dict(extra_cstrs=ec), **box)
 
 
 # ---- (c) F5: an R1 instance that enters through the extras -----------------------

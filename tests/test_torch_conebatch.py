@@ -11,9 +11,12 @@ F5) and a B = 4 extras batch (`flagship.extras_batch` cut in depth: a
 keep-in cone on the states, an auxiliary slack with a cost, the terminal
 cross cost). Also the failure contract (a hard-failed problem gives
 ``(None, None, None)`` alone), the signature mismatch, the signatures that
-are not ported (exponential cones, the structured route), the F5 instance
-seed 904 of tests/test_conebatch_soc.py through the composed route, and the
-problem converter."""
+are not ported (the structured route), the F5 instance seed 904 of
+tests/test_conebatch_soc.py through the composed route, and the problem
+converter. The exponential-cone signatures run the central-path barrier
+method over the batch: tests/test_conebatch_exp.py's logbarrier batch (B = 3)
+against the JAX function and one problem solved alone, and a B = 2 batch of
+`flagship.extras_batch` with user ``e`` rows against the JAX function."""
 
 import numpy as np
 import pytest
@@ -23,7 +26,7 @@ import pmpc_tpu
 from pmpc_tpu.conebatch import solve_problems_cone as jsolve
 from pmpc_tpu_torch.conebatch import solve_problems_cone as tsolve
 from pmpc_tpu_torch.convert import problem_from_numpy
-from pmpc_tpu_torch.flagship import dubins, extras_batch
+from pmpc_tpu_torch.flagship import EXP_KAPPA, EXP_VMAX, dubins, extras_batch
 from fixtures import unicycle_step
 from test_conebatch import _extras_row, _mk_problem
 
@@ -111,18 +114,6 @@ def test_refusals():
         tsolve(_port([p1, p2]), device="cpu")
     with pytest.raises(ValueError, match="dynamics"):
         tsolve([p1], device="cpu")
-    exp = "ROADMAP §1.8, exponential cones"
-    with pytest.raises(NotImplementedError, match=exp):
-        tsolve(_port([dict(p1, solver_settings=dict(Nc=Nc, smooth_cstr="logbarrier"))]),
-               device="cpu")
-    with pytest.raises(NotImplementedError, match=exp):
-        tsolve(_port([dict(p1, solver_settings=dict(Nc=Nc, smooth_alpha=10.0))]), device="cpu")
-    n_full = Nc * udim + M * (N - Nc) * udim + M * N * xdim
-    e_row = (0, [], 1, np.zeros((3, n_full)), np.zeros((3, 0)), np.array([0.0, 1.0, 1.0]),
-             np.zeros(n_full), np.zeros(0))
-    with pytest.raises(NotImplementedError, match=exp):
-        tsolve(_port([dict(p1, solver_settings=dict(Nc=Nc, extra_cstrs=[e_row]))]),
-               device="cpu")
     # boxes + linear extras + per-stage cones: the JAX structured route
     st = dict(p1, solver_settings=dict(Nc=Nc, u_soc_r=np.full((M, N), 0.8),
                                        extra_cstrs=[_extras_row(M, N, xdim, udim, Nc, 0.3)]))
@@ -178,3 +169,59 @@ def test_problem_converter():
     for (X, U, d), (X2, U2, d2) in zip(a, b):
         np.testing.assert_array_equal(U, U2)
         assert d["iters"] == d2["iters"]
+    # user e rows and the logbarrier settings carry over as they are
+    p = extras_batch(B=1, M=2, N=6, Nc=2, exp_speed=True, smooth_cstr="logbarrier",
+                     smooth_alpha=50.0)[0]
+    c = problem_from_numpy(dict(p, f_fx_fu_fn=None), dubins, "cpu")
+    ss, ss0 = c["solver_settings"], p["solver_settings"]
+    assert (ss["smooth_cstr"], ss["smooth_alpha"]) == ("logbarrier", 50.0)
+    for ec, ec0 in zip(ss["extra_cstrs"], ss0["extra_cstrs"]):
+        assert ec[:3] == ec0[:3]  # l, the SOC sizes, the exp-cone count
+        for t, a0 in zip(ec[3:], ec0[3:]):
+            np.testing.assert_array_equal(t.numpy(), a0)
+
+
+# ---- exponential cones: the central-path barrier method over the batch -----------
+
+def _logbarrier_batch():
+    """tests/test_conebatch_exp.py::test_batched_logbarrier_matches_serial's
+    batch: logbarrier smoothing of the box rows and of one extras row."""
+    M, N, xdim, udim, Nc = 2, 6, 4, 2, 2
+    return [dict(_mk_problem(i, M=M, N=N), solver_settings=dict(
+        Nc=Nc, smooth_cstr="logbarrier", smooth_alpha=50.0,
+        extra_cstrs=[_extras_row(M, N, xdim, udim, Nc, 0.2 + 0.05 * i)])) for i in range(3)]
+
+
+@pytest.fixture(scope="module")
+def logbarrier_out():
+    probs = _logbarrier_batch()
+    return probs, tsolve(_port(probs), device="cpu")
+
+
+def test_batched_logbarrier_matches_serial(logbarrier_out):
+    """The twin of tests/test_conebatch_exp.py: every problem converges, and
+    problem 2 solved alone matches its lane of the batch (the lanes are
+    independent: 1e-9)."""
+    probs, out_t = logbarrier_out
+    assert all(d["converged"] for _, _, d in out_t)
+    X, U, d = tsolve(_port(probs[2:]), device="cpu")[0]
+    np.testing.assert_allclose(U, out_t[2][1], atol=1e-9, rtol=0)
+    np.testing.assert_allclose(X, out_t[2][0], atol=1e-9, rtol=0)
+    assert d["iters"] <= out_t[2][2]["iters"]
+    for X, U, d in out_t:  # the smoothed boxes keep the controls strictly inside
+        assert np.abs(U).max() < 1
+
+
+def test_logbarrier_batch_matches_jax(logbarrier_out):
+    probs, out_t = logbarrier_out
+    _hold(out_t, jsolve(probs))
+
+
+def test_exp_rows_batch_matches_jax():
+    """User ``e`` rows: `flagship.extras_batch` (cut in depth to B = 2, N = 6)
+    with the soft exponential terminal-speed limit on every particle; every
+    exp slack inside its cone at the answer."""
+    probs = extras_batch(B=2, M=2, N=6, Nc=2, exp_speed=True)
+    out_t = tsolve(probs, device="cpu")
+    _hold(out_t, jsolve(_jax(probs)))
+    assert all(d["converged"] for _, _, d in out_t)

@@ -546,7 +546,9 @@ def test_port_imports_no_jax():
             "pmpc_tpu_torch.flagship", "pmpc_tpu_torch.profile_call",
             "pmpc_tpu_torch.solvers.coneipm", "pmpc_tpu_torch.solvers.compose",
             "pmpc_tpu_torch.solvers.extras", "pmpc_tpu_torch.solvers.cvar",
-            "pmpc_tpu_torch.conebatch", "pmpc_tpu_torch.convert"} <= set(mods)
+            "pmpc_tpu_torch.conebatch", "pmpc_tpu_torch.convert",
+            "pmpc_tpu_torch.solvers.expbarrier", "pmpc_tpu_torch.solvers.barrier",
+            "pmpc_tpu_torch.solvers.second_order"} <= set(mods)
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
