@@ -111,8 +111,25 @@ then phase 9 once more for the shapes phases 10-18 launched;
    condensed Newton on 21's subproblem in f64 (1e-5), then the long-horizon
    configuration at N = 280 (M=1, box +-1, state box +-6, slew 0.1) in f32:
    finite, the smoothed boxes respected, ms a call;
-then phase 9 once more for the shapes phases 19-22 launched, one JSON line
-for the kernels and, last, one JSON line for the run. Every solver phase sets
+then phase 9 once more for the shapes phases 19-22 launched;
+23. the host frontend (`pmpc_tpu_torch.solve`, the dispatcher, the host IPM
+   entry points) with the Dubins step through `make_f_fx_fu_fn` on the card:
+   (a) the flagship instance (M=32, N=30, Nc=5, box +-1) in f64, 5 SCP
+   iterations with tight IPM solves, against the fused solver at B=1 (U to
+   5e-5, the bound of tests/test_fuzz_paths.py; K1 and K2 launched);
+   (b) the same in f32 and f64 at res_tol 1e-3 (reported: converged, SCP
+   iterations, ms a call, ms a subproblem, |U32 - U64|); (c) config 5's
+   width (M=64, N=50) bounded (K3) and unbounded (K4); (d) the cone
+   ||u_j|| <= 0.9 (condensed cone route, K2, held to 1e-6), then the same
+   cones as extra_cstrs SOC blocks plus a linear row, detected and solved
+   on the structured route (never the composed program), U to 1e-6;
+   (e) the long-horizon configuration at N=280 (f32) with no method: the
+   auto-route to the Riccati IPM, no kernel launched, boxes held, ms per SCP
+   iteration; then the flagship instance through method="riccati" with
+   linear extra rows restating the first stage's bounds at +-0.3 against the
+   same bounds as boxes (U to 1e-6); phase 9 once more. Phase 23 prints its
+   seconds. Then one JSON line for the kernels and, last, one JSON line for
+   the run. Every solver phase sets
 the launch counts to 0 before its timed call and reads them after it.
 """
 
@@ -125,14 +142,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
+import pmpc_tpu_torch
 from pmpc_tpu_torch.conebatch import _canon_problem, solve_problems_cone
 from pmpc_tpu_torch.dynamics import dynamics_violation, linearize
 from pmpc_tpu_torch.flagship import (EXP_KAPPA, EXP_VMAX, HEADLINE_KW, KEEP_IN_C, KEEP_IN_R,
+                                     _x0_seed0,
                                      SOC_R3, baseline_config, cvar_batch, dubins,
                                      extras_batch, flagship, flagship_subproblem, long_horizon,
                                      long_horizon_subproblem, podscale, probe, stack_varied)
 from pmpc_tpu_torch.ops import chol_inv
-from pmpc_tpu_torch.solvers import barrier, ipm
+from pmpc_tpu_torch.solvers import barrier, compose, ipm
 from pmpc_tpu_torch.solvers.compose import (COST_ANCHOR_EPS, composed_cone_solve,
                                             composed_solve_batch_device)
 from pmpc_tpu_torch.solvers.extras import _canon_extras, terminal_cross_cost
@@ -179,6 +198,7 @@ ALPHA_LOG, ALPHA_SQ = 50.0, 8.0  # phases 19 and 21-22: logbarrier and squareplu
 NV_LOG, NV_EXP = 213, 73  # the composed programs' widths in phases 19 and 20
 LBFGS_ITERS, COST_ITERS = 8000, 1000  # phase 21: L-BFGS iterations (logbarrier, user cost)
 NEWTON_SMOOTH = 40  # phase 21: Newton steps of the references
+HOST_IT = 5  # phase 23 (a): SCP iterations of the host-against-fused pair
 FAILED = []
 CHECKED = set()  # (adds a diagonal, batch, n, dtype) held against plain
 
@@ -1339,6 +1359,181 @@ def phase_riccati_smooth(dev, card):
     no_kernel(22, launches)
 
 
+def flagship_arrays(M=32, N=30, dtype=np.float64):
+    """The headline instance (seed-0 x0, Q = I, R = 1e-2 I, box +-1) as the
+    numpy arrays of the host frontend: (Q, R, x0, box)."""
+    xdim, udim = 4, 2
+    x0 = _x0_seed0(M, xdim, torch.float64).astype(dtype)
+    Q = np.tile(np.eye(xdim, dtype=dtype), (M, N, 1, 1))
+    R = np.tile((1e-2 * np.eye(udim)).astype(dtype), (M, N, 1, 1))
+    return Q, R, x0, np.ones((M, N, udim), dtype)
+
+
+def stage_cone_extras(M, N, Nc, r, xdim=4, udim=2):
+    """The cone ||u_j|| <= r on every stage as `extra_cstrs` SOC blocks over
+    the full consensus layout (rows [0; -u_j] against h = [r; 0]), the
+    encoding `extras.split_stage_u_cones` recognizes, plus one linear row
+    that never binds (the first stage's control sum at most 10)."""
+    nc, nf = Nc * udim, (N - Nc) * udim
+    n_full = nc + M * nf + M * N * xdim
+    starts = [j * udim for j in range(Nc)] + [nc + i * nf + k * udim
+                                               for i in range(M) for k in range(N - Nc)]
+    G = np.zeros((len(starts), udim + 1, n_full))
+    for c, s0 in enumerate(starts):
+        G[c, 1:, s0:s0 + udim] = -np.eye(udim)
+    h = np.zeros((len(starts), udim + 1))
+    h[:, 0] = r
+    soc = (0, [udim + 1] * len(starts), 0, G.reshape(-1, n_full), np.zeros((G.size // n_full, 0)),
+           h.reshape(-1), np.zeros(n_full), np.zeros(0))
+    g = np.zeros((1, n_full))
+    g[0, :udim] = 1.0
+    lin = (1, [], 0, g, np.zeros((1, 0)), np.array([10.0]), np.zeros(n_full), np.zeros(0))
+    return [soc, lin]
+
+
+def host_call(f_fn, Q, R, x0, **kw):
+    """One `pmpc_tpu_torch.solve` with the launch counts set to 0 before it:
+    (X, U, data, seconds, launches)."""
+    chol_inv.reset_launch_counts()
+    t0 = time.perf_counter()
+    X, U, data = pmpc_tpu_torch.solve(f_fn, Q, R, x0, verbose=False, **kw)
+    torch.cuda.synchronize()
+    return X, U, data, time.perf_counter() - t0, dict(chol_inv.LAUNCHES)
+
+
+def phase_host_frontend(dev, card):
+    """[23] The host frontend (`pmpc_tpu_torch.solve`, the dispatcher and its
+    host IPM entry points) on the card, its numbers beside the card's name and limit."""
+    Nc, M, N = 5, 32, 30
+    f_fn = pmpc_tpu_torch.make_f_fx_fu_fn(dubins, device=dev)
+    Q, R, x0, box = flagship_arrays(M, N)
+    base = dict(u_l=-box, u_u=box, reg_x=1.0, reg_u=0.1, device=dev)
+    tight = dict(Nc=Nc, dtype=np.float64, ipm_iters=60, ipm_tol_exp=-10)
+    # (a) the host loop against the fused solver, f64, tight IPM solves
+    X, U, data, dt, launches = host_call(f_fn, Q, R, x0, max_it=HOST_IT, res_tol=0.0,
+                                         solver_settings=tight, **base)
+    solver, one = flagship(M=M, N=N, Nc=Nc, max_it=HOST_IT, dtype=torch.float64, res_tol=0.0,
+                           ipm_iters=60, ipm_tol_exp=-10, adaptive_tol=False, device=dev)
+    _, U_f, _ = solver(stack_varied(one, 1, scale=0.0))
+    err = (U_f[0].cpu().numpy() - U).__abs__().max()
+    print(f"[23] (a) solve() on the flagship instance (M={M}, N={N}, Nc={Nc}, box +-1, f64, "
+          f"{HOST_IT} SCP iterations, tight IPM): {dt * 1e3:.1f} ms, IPM iterations "
+          f"{[d['ipm_iters'] for d in data['solver_data']]}; |U_host - U_fused|_inf = "
+          f"{err:.3e} (tol 5e-5); launches {launches}; {card}")
+    require(err < 5e-5, f"[23] host and fused solves differ by {err:.3e} >= 5e-5")
+    require(launches["inv_cholesky_diag"] > 0 and launches["inv_cholesky"] > 0,
+            f"[23] solve() did not launch K1 and K2: {launches}")
+    # (b) the same instance in f32 and f64 at res_tol 1e-3
+    U_by = {}
+    for dtype in (np.float64, np.float32):
+        args = flagship_arrays(M, N, dtype)
+        X, U, data, dt, launches = host_call(
+            f_fn, *args[:3], max_it=25, res_tol=1e-3, u_l=-args[3], u_u=args[3], reg_x=1.0,
+            reg_u=0.1, device=dev, solver_settings=dict(Nc=Nc, dtype=dtype))
+        its = len(data["hist"])
+        resid = data["hist"][-1]["resid"]
+        U_by[dtype] = U
+        print(f"[23] (b) solve() {np.dtype(dtype).name} at res_tol 1e-3: converged "
+              f"{resid <= 1e-3} (resid {resid:.3e}), {its} SCP iterations, {dt * 1e3:.1f} ms a "
+              f"call, {1e3 * np.mean(data['t_aff_solve']):.2f} ms a subproblem "
+              f"(t_aff_solve), {1e3 * dt / its:.2f} ms an SCP iteration; launches {launches}; "
+              f"{card}")
+        require(np.isfinite(U).all() and np.abs(U).max() <= 1 + 1e-5,
+                f"[23] (b) {np.dtype(dtype).name}: output not finite or the box is violated")
+    print(f"[23] (b) |U32 - U64|_inf = {np.abs(U_by[np.float32] - U_by[np.float64]).max():.3e}")
+    # (c) config 5's width through solve(): nf = 90 blocks (K3), then unbounded (K4)
+    Q5, R5, _, box5 = flagship_arrays(64, 50)
+    x05 = np.ones((64, 4))
+    for bounded, name in ((True, "inv_cholesky_diag_big"), (False, "inv_cholesky_big")):
+        kw5 = dict(u_l=-box5, u_u=box5) if bounded else {}
+        X, U, data, dt, launches = host_call(f_fn, Q5, R5, x05, max_it=3, res_tol=0.0,
+                                             reg_x=1.0, reg_u=0.1, device=dev,
+                                             solver_settings=dict(Nc=Nc, dtype=np.float64),
+                                             **kw5)
+        print(f"[23] (c) solve() at config 5's width (M=64, N=50, Nc=5, f64, "
+              f"{'box +-1' if bounded else 'unbounded'}, 3 SCP iterations): {dt * 1e3:.1f} ms; "
+              f"launches {launches}; {card}")
+        require(launches[name] > 0 and np.isfinite(U).all(),
+                f"[23] (c) solve() did not launch {name} or returned non-finite controls")
+    # (d) control cones through solve(): the condensed cone route (K2); then
+    # the same cones as extra_cstrs SOC blocks plus a linear row, detected
+    # and kept on the structured route. tau 0.95: at 0.99 the cold first
+    # subproblem crawls to the cap at tight tolerances (ROADMAP §3 F5, F7)
+    cone_ipm = dict(tight, ipm_tol_exp=-11, ipm_iters=100, ipm_tau=0.95)
+    cone = dict(cone_ipm, u_soc_r=np.full((M, N), SOC_R3))
+    X, U, data, dt, launches = host_call(f_fn, Q, R, x0, max_it=3, res_tol=0.0,
+                                         solver_settings=cone, **base)
+    norm = np.linalg.norm(U, axis=-1).max()
+    print(f"[23] (d) solve() with ||u_j|| <= {SOC_R3} (f64, 3 SCP iterations, tau 0.95): "
+          f"{dt * 1e3:.1f} "
+          f"ms, IPM iterations {[d['ipm_iters'] for d in data['solver_data']]}, max ||u_j|| "
+          f"{norm:.9f}; launches {launches}; {card}")
+    require(norm <= SOC_R3 + 1e-6 and launches["inv_cholesky"] > 0,
+            f"[23] (d) cone violated ({norm}) or K2 not launched ({launches})")
+    real = compose.composed_cone_solve
+
+    def refuse(*a, **k):
+        raise AssertionError("stage cone extras went to the composed program")
+
+    compose.composed_cone_solve = refuse
+    try:
+        ex = dict(cone_ipm, extra_cstrs=stage_cone_extras(M, N, Nc, SOC_R3))
+        X2, U2, data2, dt, launches = host_call(f_fn, Q, R, x0, max_it=3, res_tol=0.0,
+                                                solver_settings=ex, **base)
+    finally:
+        compose.composed_cone_solve = real
+    err = np.abs(U2 - U).max()
+    structured = all(len(d["solver_state"]["ipm_warm"]) == 6 for d in data2["solver_data"])
+    print(f"[23] (d) the same cones as extra_cstrs (+ a linear row): structured route "
+          f"{structured}, {dt * 1e3:.1f} ms, |U - U_(d)|_inf = {err:.3e} (tol 1e-6)")
+    require(structured and err <= 1e-6, f"[23] (d) extras route: structured {structured}, "
+            f"|dU| {err:.3e}")
+    # (e) the long-horizon configuration with no method: the auto-route to the
+    # Riccati IPM (no kernel), f32
+    NL = 280
+    QL, RL, _, boxL = flagship_arrays(1, NL, np.float32)
+    xl = np.full((1, NL, 4), X_BOX, np.float32)
+    kwL = dict(u_l=-boxL, u_u=boxL, x_l=-xl, x_u=xl, reg_x=1.0, reg_u=0.1, slew_rate=0.1,
+               res_tol=1e-9, device=dev, solver_settings=dict(dtype=np.float32))
+    host_call(f_fn, QL, RL, np.ones((1, 4), np.float32), max_it=1, **kwL)  # warm-up
+    X, U, data, dt, launches = host_call(f_fn, QL, RL, np.ones((1, 4), np.float32),
+                                         max_it=4, **kwL)
+    routed = all("riccati_warm" in d["solver_state"] for d in data["solver_data"])
+    print(f"[23] (e) solve() at N={NL} (M=1, box +-1, state box +-{X_BOX}, slew 0.1, f32, "
+          f"4 SCP iterations, no method): Riccati route {routed}, {dt * 1e3:.1f} ms, "
+          f"{1e3 * dt / len(data['hist']):.1f} ms an SCP iteration "
+          f"({1e3 * np.mean(data['t_aff_solve']):.1f} ms a subproblem), IPM iterations "
+          f"{[d['ipm_iters'] for d in data['solver_data']]}; launches {launches}; {card}")
+    require(routed, "[23] (e) the long horizon did not auto-route to the Riccati IPM")
+    no_kernel(23, launches)
+    require(np.abs(U).max() <= 1 + 1e-5 and np.abs(X).max() <= X_BOX + 1e-4,
+            "[23] (e) a control or state box is violated")
+    # then the flagship instance through method="riccati": linear extra rows
+    # restating the first consensus stage's bounds at +-0.3 against the same
+    # bounds as boxes
+    nc, nf = Nc * 2, (N - Nc) * 2
+    n_full = nc + M * nf + M * N * 4
+    G = np.zeros((4, n_full))
+    G[[0, 1], [0, 1]], G[[2, 3], [0, 1]] = 1.0, -1.0
+    rows = [(4, [], 0, G, np.zeros((4, 0)), np.full(4, 0.3), np.zeros(n_full), np.zeros(0))]
+    ric = dict(tight, ipm_tol_exp=-12, ipm_iters=80, method="riccati")
+    tight_box = box.copy()
+    tight_box[:, 0] = 0.3
+    out = {}
+    for name, kw in (("rows", dict(base, solver_settings=dict(ric, extra_cstrs=rows))),
+                     ("boxes", dict(base, u_l=-tight_box, u_u=tight_box,
+                                    solver_settings=ric))):
+        out[name] = host_call(f_fn, Q, R, x0, max_it=3, res_tol=0.0, **kw)
+    err = np.abs(out["rows"][1] - out["boxes"][1]).max()
+    binds = np.abs(out["boxes"][1][0, 0]).max()
+    print(f"[23] (e) method='riccati' on the flagship instance (f64, 3 SCP iterations): rows "
+          f"{out['rows'][3] * 1e3:.1f} ms, boxes {out['boxes'][3] * 1e3:.1f} ms, "
+          f"|U_rows - U_boxes|_inf = {err:.3e} (tol 1e-6), max |u_0| {binds:.6f}; "
+          f"launches rows {out['rows'][4]}")
+    require(err <= 1e-6, f"[23] (e) Riccati extra rows and boxes differ by {err:.3e} > 1e-6")
+    require(abs(binds - 0.3) < 1e-6, "[23] (e) the restated bounds do not bind")
+
+
 def main():
     card = phase_card()
     dev = torch.device("cuda", 0)
@@ -1376,6 +1571,10 @@ def main():
         t0 = time.perf_counter()
         phase_riccati_smooth(dev, card)
         print(f"    [22] took {time.perf_counter() - t0:.1f} s")
+        phase_launched_shapes(dev)
+        t0 = time.perf_counter()
+        phase_host_frontend(dev, card)
+        print(f"    [23] took {time.perf_counter() - t0:.1f} s")
         phase_launched_shapes(dev)
     # the state-box phase launches K2 twice per IPM iteration, once at each shape
     wide, cone, cvar_shape, smooth_shape = kern["inv_cholesky"]["other_shapes"]

@@ -8,7 +8,10 @@ from __future__ import annotations
 
 from typing import Callable, Tuple
 
+import numpy as np
 import torch
+
+from .utils import default_device, to_host
 
 
 def _xlin(x0, X_prev):
@@ -149,3 +152,23 @@ def linearize(dynamics: Callable, X: torch.Tensor, U: torch.Tensor,
     return (y.reshape(lead + (xdim,)),
             J[..., :xdim].reshape(lead + (xdim, xdim)),
             J[..., xdim:].reshape(lead + (xdim, udim)))
+
+
+def make_f_fx_fu_fn(dynamics: Callable, device=None) -> Callable:
+    """Wrap a torch single-step dynamics ``f(x (xdim,), u (udim,)) -> (xdim,)``
+    into the reference-style callback ``f_fx_fu_fn(X, U) -> (f, fx, fu)`` of
+    the host SCP loop: numpy in, numpy out.
+
+    The points go to ``device`` (the card when None; `default_device` raises
+    without one) in their own dtype, `linearize` runs there, and the three
+    results come back to the host in ONE transfer. The wrapped step is kept
+    as ``__wrapped_dynamics__``."""
+    dev = default_device() if device is None else torch.device(device)
+
+    def f_fx_fu_fn(X, U):
+        Xt = torch.as_tensor(np.asarray(X), device=dev)
+        Ut = torch.as_tensor(np.asarray(U), dtype=Xt.dtype, device=dev)
+        return tuple(to_host(linearize(dynamics, Xt, Ut)))
+
+    f_fx_fu_fn.__wrapped_dynamics__ = dynamics
+    return f_fx_fu_fn

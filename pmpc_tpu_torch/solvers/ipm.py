@@ -34,16 +34,16 @@ sync per iteration.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.linalg import spd_apply, spd_factor
-from ..utils import lane_where
+from ..utils import default_device, full_matmul_precision, lane_where, to_host
 from .coneipm import _soc_W, _soc_inv, _soc_prod, _soc_shift, _soc_step_len, _soc_viol
 from .reduced import ArrowFactors, CondensedQP, H_apply_factored, arrow_apply, \
-    arrow_factor, arrow_factor_diag, z_to_w
+    arrow_factor, arrow_factor_diag, assemble_condensed, recover_XU, z_to_w
 
 
 class BoxBounds(NamedTuple):
@@ -683,3 +683,122 @@ def map_extras_rows(cqp: CondensedQP, ex_G: torch.Tensor, ex_h: torch.Tensor) ->
     Gf = ex_G[..., nc:nu_total].reshape(B, l, M, nf) + GxFt[..., nc:]
     h = ex_h - (G_x * cqp.g[:, None]).sum((-2, -1))
     return ExtraRows(Gc=Gc, Gf=Gf, h=h)
+
+
+@full_matmul_precision
+def _host_box_solve(base_args, reg_args, bounds, socs, warm, tol_dyn, weights, Nc: int,
+                    scale_slew_target: bool, N: int, has_u: bool, has_x: bool,
+                    has_soc: bool, iters: int, tol_exp: int, kappa: float, mu_target: float,
+                    tau, gondzio: int = 0, ex_G=None, ex_h=None, predictor: bool = True):
+    """Assemble, IPM and recover of one host subproblem (tensors with a
+    leading batch axis of 1). Returns (X, U, uc, uf, stats)."""
+    cqp = assemble_condensed(*base_args, *reg_args, Nc=Nc, weights=weights,
+                             scale_slew_target=scale_slew_target)
+    has_ex = ex_G is not None
+    ex = map_extras_rows(cqp, ex_G, ex_h) if has_ex else None
+    uc, uf, stats = ipm_core(
+        cqp, bounds, has_u=has_u, has_x=has_x, iters=iters, tol_exp=tol_exp, kappa=kappa,
+        mu_target=mu_target, warm=warm, tol_dynamic=tol_dyn, tau=tau, socs=socs,
+        has_soc=has_soc, gondzio=gondzio, ex=ex, has_ex=has_ex, predictor=predictor)
+    X, U = recover_XU(cqp, uc, uf, N=N)
+    return X, U, uc, uf, stats
+
+
+def ipm_solve_np(base_args, reg_args, u_l, u_u, x_l, x_u, Nc: int, weights=None,
+                 settings: Optional[Dict[str, Any]] = None, ex_G=None, ex_h=None,
+                 device=None) -> Tuple[np.ndarray, np.ndarray, Dict[str, Any]]:
+    """The numpy frontend of the condensed IPM: one subproblem, numpy in and
+    out (X (M, N, xdim), U (M, N, udim), data).
+
+    ``base_args`` (x0, f, fx, fu, X_prev, U_prev, Q, R, X_ref, U_ref) and
+    ``reg_args`` (reg_x, reg_u, slew_reg, slew_reg0, slew_um1) as the JAX
+    function takes them; the dtype is f's, the tensors go to ``device`` (the
+    card when None). ``ex_G (l, n_full)`` / ``ex_h (l,)``: LINEAR extra
+    rows over the full consensus layout [u_cons; u_free; x], bordering the
+    arrow system (`ExtraRows`). The host path's defaults: ``ipm_iters``
+    30, ``ipm_tol_exp`` -8 in f64 and -5 in f32, ``ipm_kappa`` 0 in f64 and
+    1e-7 in f32. ``settings["solver_state"]["ipm_warm"]``, the previous
+    subproblem's numpy (uc (nc,), uf (M, nf), s (mtot,), lam (mtot,)[, sq,
+    zq]), warm-starts it where the shapes match. The inexact-Newton forcing
+    ``min(1e-3 r^2, 1e-3)`` follows the SCP residual r in
+    ``settings["scp_residual"]`` unless ``ipm_tol_exp`` is given (then only
+    ``ipm_adaptive_tol`` turns it on). Everything comes back in ONE
+    device-to-host transfer; ``data`` has solver_state (``ipm_warm``),
+    ipm_mu, ipm_iters, ipm_converged and ipm_failed."""
+    settings = settings or {}
+    dev = default_device() if device is None else torch.device(device)
+    f = np.asarray(base_args[1])
+    M, N, xdim = f.shape
+    udim = np.asarray(base_args[3]).shape[-1]
+    dtype = f.dtype
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
+    T = lambda a: torch.as_tensor(np.array(a, dtype=dtype), device=dev)[None]
+
+    nc, nf = Nc * udim, (N - Nc) * udim
+    bounds = _layout_bounds(u_l, u_u, x_l, x_u, M, N, N * xdim, nc, nf, udim, dtype,
+                            device=dev)
+    u_soc_r = settings.get("u_soc_r", None)
+    has_soc = u_soc_r is not None
+    socs = layout_socs(T(np.broadcast_to(np.asarray(u_soc_r, dtype=dtype), (M, N))), Nc) \
+        if has_soc else None
+
+    has_u = u_l is not None or u_u is not None
+    has_x = x_l is not None or x_u is not None
+    iters = int(settings.get("ipm_iters", 30))
+    tol_exp = int(settings.get("ipm_tol_exp", -8 if dtype == np.float64 else -5))
+    kappa = float(settings.get("ipm_kappa", 0.0 if dtype == np.float64 else 1e-7))
+    mu_target = float(settings.get("mu_target", 0.0))
+
+    # warm start from the previous SCP iteration's primal/dual point, threaded
+    # through settings["solver_state"] by the host SCP loop; ignored when the
+    # shapes do not match the new problem
+    warm = None
+    prev_state = settings.get("solver_state") or {}
+    has_ex = ex_G is not None
+    l_ex = int(np.shape(ex_G)[0]) if has_ex else 0
+    cand = prev_state.get("ipm_warm") if isinstance(prev_state, dict) else None
+    if cand is not None:
+        uc_w, uf_w, s_w, lam_w = cand[:4]
+        mtot = 2 * nc + 2 * M * nf + (2 * M * (N * xdim) if has_x else 0) + l_ex
+        if (np.shape(uc_w) == (nc,) and np.shape(uf_w) == (M, nf)
+                and np.shape(s_w) == (mtot,) and np.shape(lam_w) == (mtot,)):
+            warm = tuple(T(z) for z in cand)
+            if has_soc and len(warm) < 6:
+                warm = None  # cone duals missing: cold start
+
+    # inexact-Newton forcing from the SCP residual (the fused path's
+    # adaptive_tol rule); an EXPLICIT ipm_tol_exp asks for that accuracy on
+    # every subproblem and turns it off unless ipm_adaptive_tol is set
+    tol_dyn = None
+    r_scp = settings.get("scp_residual")
+    adaptive_dflt = "ipm_tol_exp" not in settings
+    if r_scp is not None and np.isfinite(r_scp) \
+            and settings.get("ipm_adaptive_tol", adaptive_dflt):
+        r = min(float(r_scp), 1e3)
+        tol_dyn = torch.full((1,), min(1e-3 * r * r, 1e-3), dtype=tdt, device=dev)
+
+    X, U, uc, uf, stats = _host_box_solve(
+        tuple(T(a) for a in base_args), tuple(T(a) for a in reg_args), bounds, socs, warm,
+        tol_dyn, None if weights is None else T(weights), Nc=Nc,
+        scale_slew_target=bool(settings.get("weights_scale_slew_target", True)),
+        N=N, has_u=has_u, has_x=has_x, has_soc=has_soc, iters=iters, tol_exp=tol_exp,
+        kappa=kappa, mu_target=mu_target,
+        tau=float(settings["ipm_tau"]) if settings.get("ipm_tau") is not None else None,
+        gondzio=int(settings.get("ipm_gondzio", 0)),
+        predictor=bool(settings.get("ipm_predictor", True)),
+        ex_G=T(ex_G) if has_ex else None, ex_h=T(ex_h) if has_ex else None)
+    # ONE device->host transfer for everything
+    pull = [X, U, uc, uf, stats["s"], stats["lam"], stats["mu"], stats["iters"],
+            stats["converged"], stats["failed"]]
+    if has_soc:
+        pull += [stats["sq"], stats["zq"]]
+    host = [a[0] for a in to_host(pull)]
+    X_h, U_h, uc_h, uf_h, s_h, lam_h, mu_h, it_h, conv_h, fail_h = host[:10]
+    data = dict(
+        solver_state=dict(ipm_warm=tuple([uc_h, uf_h, s_h, lam_h] + host[10:])),
+        ipm_mu=float(mu_h),
+        ipm_iters=int(it_h),
+        ipm_converged=bool(conv_h > 0),
+        ipm_failed=bool(fail_h > 0),
+    )
+    return X_h, U_h, data

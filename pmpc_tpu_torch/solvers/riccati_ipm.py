@@ -3,8 +3,9 @@
 Twin of ``pmpc_tpu/solvers/riccati_ipm.py``: control boxes, state boxes
 (also under the slew augmentation, where the box sees only the first ``nxb``
 entries of the stage state), per-stage control-norm cones (``soc_rc`` /
-``soc_rf``), ``mu_target > 0``, warm start, ``tol_dynamic``, ``tau``,
-``kappa``. Linear extra rows raise (ROADMAP §1.9).
+``soc_rf``), linear extra rows (``ex_*``), ``mu_target > 0``, warm start,
+``tol_dynamic``, ``tau``, ``kappa``, and the numpy frontend of the host SCP
+loop (`riccati_ipm_solve_np`).
 
 The condensed IPM (`ipm.py`) materializes the O(N^2) sensitivity ``Ft`` and
 factors (Nf udim)^2 dense blocks per particle. This module runs the SAME
@@ -26,7 +27,13 @@ theta-parameterized Riccati sweep, never building ``Ft``:
   per-particle theta-quadratics;
 - a cone's NT scaling is a dense (udim x udim) block in control space: a
   free stage's lands on its ``Rt_j``, a consensus stage's on its block of
-  the theta Schur complement, so the cones cost no sweep.
+  the theta Schur complement, so the cones cost no sweep;
+- linear extra rows reduce, by one adjoint sweep over all rows at once, to
+  constant dense rows over (theta, u_free) plus a shift of h by the
+  zero-control rollout, and border the Newton system: the l rows' solves
+  are the columns of one more backward and forward sweep an iteration, their
+  l x l Schur complement one small factor, and a direction's correction by
+  the rows' dual step is a product with those columns (no further sweep).
 
 The JAX core takes one scenario of (M, ...) arrays under ``jax.vmap``; here
 the scenario axis B is explicit, every stage array is (B, M, N, ...), every
@@ -48,12 +55,13 @@ corrector's right-hand side, and the corrector's backward and forward sweep.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
-from ..ops.linalg import cholesky_factor, cholesky_solve
-from ..utils import full_matmul_precision, lane_where
+from ..ops.linalg import cholesky_factor, cholesky_solve, spd_apply, spd_factor
+from ..utils import default_device, full_matmul_precision, lane_where, to_host
 from .coneipm import _soc_W, _soc_inv, _soc_prod, _soc_shift, _soc_step_len, _soc_viol
 from .ipm import _block_diag, _mv
 from .riccati import _flat, _scp_stage_terms, augment_slew_stages
@@ -86,10 +94,6 @@ class RIPMState(NamedTuple):
     badc: torch.Tensor  # (B,) int32 consecutive breakdowns (the cone retry counter)
     failed: torch.Tensor  # (B,) bool: froze on a bad (non-finite or diverged)
     #                       step without converging
-
-
-def _unsupported(what: str, item: str):
-    raise NotImplementedError(f"riccati_ipm: {what} is not ported yet ({item})")
 
 
 def _selectors(N: int, Nc: int, udim: int, dtype, device=None):
@@ -177,14 +181,16 @@ def _lin_backward_flat(Aa, Mn, L, Huy, B, utf, Nc: int, c=None, xt=None, utc=Non
     """Backward LINEAR sweep against a stored factor.
 
     Stage linear terms enter the objective as ``- xt_j' x_j - ut_j' u_j``;
-    ``utf`` (nb, N - Nc, udim, 1) applies to the eliminated (free) stage
+    ``utf`` (nb, N - Nc, udim, k) applies to the eliminated (free) stage
     controls, ``utc`` (nb, N, udim, 1) to the consensus-stage controls
     (routed onto the theta block); ``c`` is the dynamics offset. None stands
-    for zeros, as in every Newton solve. Returns (p0 (nb, na, 1),
-    k (nb, N, udim, 1), zero on the consensus stages)."""
+    for zeros, as in every Newton solve. The k columns of ``utf`` are k
+    right-hand sides. Returns (p0 (nb, na, k), k (nb, N, udim, k), zero on
+    the consensus stages)."""
     nb, N, xdim, udim = B.shape
-    p = Aa.new_zeros((nb, Aa.shape[-1], 1))
-    ks = [Aa.new_zeros((nb, udim, 1))] * N
+    ncol = utf.shape[-1]
+    p = Aa.new_zeros((nb, Aa.shape[-1], ncol))
+    ks = [Aa.new_zeros((nb, udim, ncol))] * N
     for j in reversed(range(N)):
         if xt is not None or (utc is not None and j < Nc):
             p = p.clone()
@@ -206,11 +212,12 @@ def _lin_backward_flat(Aa, Mn, L, Huy, B, utf, Nc: int, c=None, xt=None, utc=Non
 
 
 def _forward_flat(A, B, K, k, theta, Nc: int, x0=None, c=None):
-    """Forward rollout given theta (nb, nct, 1) and the stage gains: X
-    (nb, N, xdim, 1), U (nb, N, udim, 1). ``x0``/``c`` None: zeros."""
+    """Forward rollout given theta (nb, nct, k) and the stage gains: X
+    (nb, N, xdim, k), U (nb, N, udim, k), one column per right-hand side.
+    ``x0``/``c`` None: zeros."""
     nb, N, xdim, udim = B.shape
     kk = k + K[..., xdim:] @ theta[:, None]  # the gains' theta part, every stage
-    x = A.new_zeros((nb, xdim, 1)) if x0 is None else x0
+    x = A.new_zeros((nb, xdim, theta.shape[-1])) if x0 is None else x0
     Xs, Us = [None] * N, [None] * N
     for j in range(N):
         if j >= Nc:
@@ -251,15 +258,21 @@ def _stage_U(theta, uf, Nc: int, udim: int, maskc):
     return torch.cat([Uc.expand(Bn, M, Nc, udim), uf.reshape(Bn, M, uf.shape[-1] // udim, udim)], dim=2)
 
 
-def _pull(gU, Bn: int, M: int, Nc: int, nct: int):
-    """Stage-control gradients (B*M, N, udim, 1) -> (theta part (B, nct),
-    summed over the particles; free part (B, M, nfu))."""
-    N, udim = gU.shape[1:3]
-    g = gU.reshape(Bn, M, N, udim)
-    gth = g.new_zeros((Bn, nct))
+def _pull_cols(gU, Bn: int, M: int, Nc: int, nct: int):
+    """Stage-control gradients (B*M, N, udim, k) -> (theta part (B, nct, k),
+    summed over the particles; free part (B, M, nfu, k))."""
+    N, udim, k = gU.shape[1:]
+    g = gU.reshape(Bn, M, N, udim, k)
+    gth = g.new_zeros((Bn, nct, k))
     if Nc:
-        gth[:, :Nc * udim] = g[:, :, :Nc].sum(1).reshape(Bn, Nc * udim)
-    return gth, g[:, :, Nc:].reshape(Bn, M, (N - Nc) * udim)
+        gth[:, :Nc * udim] = g[:, :, :Nc].sum(1).reshape(Bn, Nc * udim, k)
+    return gth, g[:, :, Nc:].reshape(Bn, M, (N - Nc) * udim, k)
+
+
+def _pull(gU, Bn: int, M: int, Nc: int, nct: int):
+    """`_pull_cols` of one column: (theta part (B, nct), free part (B, M, nfu))."""
+    gth, gf = _pull_cols(gU, Bn, M, Nc, nct)
+    return gth[..., 0], gf[..., 0]
 
 
 # ---- the same sweeps over (..., M, N, ...) arrays, one call each ----
@@ -397,17 +410,22 @@ def riccati_ipm_core(
         mu_target > 0: stop on the central path at that duality measure
             (the logbarrier smoothing's solution), then 10 pure centering
             steps.
+        ex_Gc (B, l, nct) / ex_Gf (B, l, M, nfu) / ex_Gx (B, l, M, N, nxe) /
+            ex_h (B, l): LINEAR extra rows ``g'z <= h`` over the full
+            consensus layout, split by variable block (+inf h rows inactive;
+            ``nxe`` may be smaller than the stage state dim, as ``nxb``).
+            The state block reduces by one adjoint sweep (A, B are constant
+            within the subproblem) to dense rows over (theta, uf), and h by
+            the zero-control rollout; the rows border the Newton system, their
+            dual step from the l x l Schur system
+            ``(G A^-1 G' + W^-1) dlam = G A^-1 b - c2``.
         scan_unroll: taken for signature parity, without effect (it tunes
             the JAX package's scans).
-        ex_G*/ex_h: not ported, they raise.
 
     Returns (theta (B, nct), uf (B, M, nfu), stats): mu, iters, converged,
     failed (each (B,)), s, lam, sq, zq. Recover trajectories with
     `recover_XU_stage`.
     """
-    if any(a is not None for a in (ex_Gc, ex_Gf, ex_Gx, ex_h)):
-        _unsupported("linear extra rows (ex_*)", "ROADMAP §1.9, with the host dispatcher")
-
     Bn, M, N, xdim = c.shape
     udim = B.shape[-1]
     dtype, dev = c.dtype, c.device
@@ -417,11 +435,13 @@ def riccati_ipm_core(
     nfu = Nf * udim
     has_x = x_lo is not None
     has_soc = soc_rc is not None
+    has_ex = ex_h is not None
     nxb = x_lo.shape[-1] if has_x else 0
     mx = M * N * nxb
     o_chi, o_flo, o_fhi = nct, 2 * nct, 2 * nct + M * nfu
     o_xlo = 2 * nct + 2 * M * nfu
     o_xhi = o_xlo + mx
+    o_ex = o_xhi + mx
 
     tol = torch.full((Bn,), 10.0 ** tol_exp, dtype=dtype, device=dev)
     if tol_dynamic is not None:
@@ -433,6 +453,8 @@ def riccati_ipm_core(
     bound_blocks = [lo_c, hi_c, lo_f.reshape(Bn, -1), hi_f.reshape(Bn, -1)]
     if has_x:
         bound_blocks += [x_lo.reshape(Bn, -1), x_hi.reshape(Bn, -1)]
+    if has_ex:
+        bound_blocks += [ex_h]
     mask = torch.isfinite(torch.cat(bound_blocks, -1))
     mask[:, :2 * nct] &= (maskc > 0).repeat(2)
     n_act = mask.sum(-1).to(dtype)
@@ -487,6 +509,28 @@ def riccati_ipm_core(
         U = _flat(_stage_U(theta, uf, Nc, udim, maskc), 2)[..., None]
         return U, _rollout_flat(x0f, cf, Af, Bf, U)
 
+    if has_ex:
+        # the rows' state block, one adjoint sweep with the l rows as its
+        # columns: constant dense rows over (theta, uf); the states at zero
+        # controls shift h
+        l_ex, nxe = ex_h.shape[-1], ex_Gx.shape[-1]
+        Vx = ex_Gx.permute(0, 2, 3, 4, 1).reshape(nb, N, nxe, l_ex)
+        if nxe < xdim:
+            Vx = torch.nn.functional.pad(Vx, (0, 0, 0, xdim - nxe))
+        gx_th, gx_f = _pull_cols(_adjoint_flat(Af, Bf, Vx), Bn, M, Nc, nct)
+        exr_c = (ex_Gc + gx_th.mT) * maskc  # (B, l, nct)
+        exr_f = ex_Gf.reshape(Bn, l_ex, M * nfu) + gx_f.reshape(Bn, M * nfu, l_ex).mT
+        X_zero = _rollout_flat(x0f, cf, Af, Bf, Af.new_zeros((nb, N, udim, 1)))
+        h_eff = ex_h - (ex_Gx * X_zero[:, :, :nxe, 0].reshape(Bn, 1, M, N, nxe)).sum((2, 3, 4))
+
+        def ex_dot(theta, uf):
+            """The rows' values over the reduced variables, (B, l)."""
+            return (exr_c @ theta[..., None] + exr_f @ uf.reshape(Bn, -1, 1))[..., 0]
+
+        def ex_pull(v):
+            """G_ex' v: (theta part (B, nct), free part (B, M, nfu))."""
+            return (v[:, None] @ exr_c)[:, 0], (v[:, None] @ exr_f)[:, 0].reshape(Bn, M, nfu)
+
     def boxed(X):
         """The entries of the states that the box sees, (B, M*N*nxb)."""
         return X[:, :, :nxb, 0].reshape(Bn, mx)
@@ -497,12 +541,14 @@ def riccati_ipm_core(
         if has_x:
             Xb = boxed(X)
             vals += [Xb - x_lo.reshape(Bn, mx), x_hi.reshape(Bn, mx) - Xb]
+        if has_ex:
+            vals += [h_eff - ex_dot(theta * maskc, uf)]
         return torch.cat(vals, -1)
 
     def x_rows(v):
         """State-row multipliers of a flat vector as adjoint sources
         (nb, N, xdim, 1), zero past the boxed entries."""
-        vx = (v[:, o_xhi:] - v[:, o_xlo:o_xhi]).reshape(nb, N, nxb, 1)
+        vx = (v[:, o_xhi:o_ex] - v[:, o_xlo:o_xhi]).reshape(nb, N, nxb, 1)
         return torch.nn.functional.pad(vx, (0, 0, 0, xdim - nxb)) if nxb < xdim else vx
 
     def u_rows(v):
@@ -536,13 +582,16 @@ def riccati_ipm_core(
                            xdim, kappa, Sc_blk)
 
         def solve(bc, bf):
-            """(dtheta, duf, the states' direction) for one right-hand side."""
-            p0, k = _lin_backward_flat(Aa, Mn, L, Huy, Bf, bf.reshape(nb, Nf, udim, 1), Nc)
-            s = p0[:, xdim:, 0].reshape(Bn, M, nct).sum(1)
-            th = cholesky_solve(LS, (bc - s) * maskc)
-            th_p = th[:, None, :].expand(Bn, M, nct).reshape(nb, nct, 1)
+            """(dtheta (B, nct, k), duf (B, M, nfu, k), the states' direction
+            (B*M, N, xdim, k)) for k right-hand sides bc (B, nct, k), bf
+            (B, M, nfu, k)."""
+            k_ = bc.shape[-1]
+            p0, k = _lin_backward_flat(Aa, Mn, L, Huy, Bf, bf.reshape(nb, Nf, udim, k_), Nc)
+            s = p0[:, xdim:].reshape(Bn, M, nct, k_).sum(1)
+            th = cholesky_solve(LS, (bc - s) * maskc[:, None])
+            th_p = th[:, None].expand(Bn, M, nct, k_).reshape(nb, nct, k_)
             dX, dU = _forward_flat(Af, Bf, K, k, th_p, Nc)
-            return th, dU[:, Nc:, :, 0].reshape(Bn, M, nfu), dX
+            return th, dU[:, Nc:].reshape(Bn, M, nfu, k_), dX
 
         return solve
 
@@ -595,6 +644,9 @@ def riccati_ipm_core(
         gth, gfu = _pull(Rtf @ U - utf_ + pulled[..., :1], Bn, M, Nc, nct)
         dc, df = u_rows(lam)
         gc, gf = (gth + dc) * maskc, gfu + df
+        if has_ex:
+            ec, ef = ex_pull(lam[:, o_ex:])
+            gc, gf = gc + ec * maskc, gf + ef
 
         w = torch.where(mask, torch.clamp(lam / s, max=w_max), 0.0)
         cone_kw = {}
@@ -615,14 +667,50 @@ def riccati_ipm_core(
                 Sc_blk = Sc_blk + torch.nn.functional.pad(
                     _block_diag(Bq[:, :Nc]), (0, nct - Nc * udim, 0, nct - Nc * udim))
             cone_kw = dict(Bq_free=Bq_free.reshape(nb, Nf, udim, udim), Sc_blk=Sc_blk)
-        solve = newton_factor(
+        solve_cols = newton_factor(
             w[:, :nct] + w[:, o_chi:o_flo],
             (w[:, o_flo:o_fhi] + w[:, o_fhi:o_xlo]).reshape(Bn, M, nfu),
-            w[:, o_xlo:o_xhi] + w[:, o_xhi:] if has_x else None, **cone_kw)
+            w[:, o_xlo:o_xhi] + w[:, o_xhi:o_ex] if has_x else None, **cone_kw)
+
+        def solve(bc, bf):
+            th, duf, dX = solve_cols(bc[..., None], bf[..., None])
+            return th[..., 0], duf[..., 0], dX
+
+        if has_ex:
+            # the bordered solve: the l rows stay explicit, their dual step
+            # from the l x l Schur system (G A^-1 G' + W^-1) dlam = G A^-1 b
+            # - c2 (folding them into A multiplies the solve error by
+            # w_ex ~ 1/mu). A^-1 G' is one solve with the rows as columns; the
+            # solve of b - G' dlam is then y - (A^-1 G') dlam
+            mask_ex = mask[:, o_ex:]
+            Zth, Zuf, ZdX = solve_cols(exr_c.mT, exr_f.mT.reshape(Bn, M, nfu, l_ex))
+            S_ex = exr_c @ Zth + exr_f @ Zuf.reshape(Bn, M * nfu, l_ex)
+            S_ex = S_ex + torch.diag_embed(torch.where(
+                mask_ex, 1.0 / torch.clamp(w[:, o_ex:], min=1e-30), 1e30))
+            LS_ex = spd_factor(S_ex, jitter=1e-12)
+
+            def solve_K(bc, bf, c2):
+                th, duf, dX = solve(bc, bf)
+                dle = torch.where(mask_ex, spd_apply(LS_ex, ex_dot(th, duf) - c2), 0.0)
+                dle_p = dle[:, None].expand(Bn, M, l_ex).reshape(nb, 1, l_ex, 1)
+                return (th - (Zth @ dle[..., None])[..., 0],
+                        duf - (Zuf @ dle[:, None, :, None])[..., 0],
+                        dX - ZdX @ dle_p, dle)
+        else:
+            def solve_K(bc, bf, c2):
+                return solve(bc, bf) + (None,)
+
+        def c2_of(r_c):
+            """The rows' Schur right-hand side, -r_p + r_c / lam per row."""
+            if not has_ex:
+                return None
+            return torch.where(mask[:, o_ex:], -r_p[:, o_ex:] + r_c[:, o_ex:]
+                               / torch.clamp(lam[:, o_ex:], min=1e-30), 0.0)
 
         def newton_rhs(v, x_pull, dq_c):
             """-(grad + G'v) (+ the cones' term); ``x_pull`` is the adjoint
-            of v's state rows."""
+            of v's state rows. The extra rows' part of v is not folded in:
+            it enters through the Schur system (`c2_of`)."""
             dc, df = u_rows(v)
             if has_x:
                 xc, xf = _pull(x_pull, Bn, M, Nc, nct)
@@ -635,14 +723,20 @@ def riccati_ipm_core(
                 bc, bf = bc + vqc, bf + vqf
             return bc, bf, vq
 
-        def recover_steps(dth, duf, dX, v, vq):
+        def recover_steps(dth, duf, dX, v, vq, dle):
             parts = [-dth, dth, -duf.reshape(Bn, -1), duf.reshape(Bn, -1)]
             if has_x:
                 dXb = boxed(dX)
                 parts += [-dXb, dXb]
+            if has_ex:
+                parts += [ex_dot(dth * maskc, duf)]
             gdz = torch.cat(parts, -1)
             ds = torch.where(mask, -r_p - gdz, 0.0)
             dlam = torch.where(mask, w * gdz + v, 0.0)
+            if has_ex:
+                # the Schur system's dual step is the stable one (w*gdz + v
+                # cancels at w ~ 1/mu)
+                dlam = torch.cat([dlam[:, :o_ex], torch.where(mask[:, o_ex:], dle, 0.0)], -1)
             dsq = dzq = None
             if has_soc:
                 gdq = cone_gdv(dth, duf)
@@ -677,8 +771,8 @@ def riccati_ipm_core(
         if mehrotra:
             # predictor (affine)
             bc, bf, vq_a = newton_rhs(v1, pulled[..., 1:], lam2)
-            dth_a, duf_a, dX_a = solve(bc, bf)
-            ds_a, dlam_a, dsq_a, dzq_a = recover_steps(dth_a, duf_a, dX_a, v1, vq_a)
+            dth_a, duf_a, dX_a, dle_a = solve_K(bc, bf, c2_of(r_c1))
+            ds_a, dlam_a, dsq_a, dzq_a = recover_steps(dth_a, duf_a, dX_a, v1, vq_a, dle_a)
             ap_a, ad_a = step_len(ds_a, dlam_a, dsq_a, dzq_a)
             mu_aff = mu_of(ahead(s, ap_a, ds_a), ahead(lam, ad_a, dlam_a),
                            ahead(sq, ap_a, dsq_a) if has_soc else sq,
@@ -696,11 +790,11 @@ def riccati_ipm_core(
                                     dq_c)
         else:
             # pure centering Newton on the perturbed KKT at mu_target
-            v = v1
+            v, r_c = v1, r_c1
             bc, bf, vq = newton_rhs(v, pulled[..., 1:],
                                     lam2 - mu_target * e_soc if has_soc else None)
-        dth, duf, dX = solve(bc, bf)
-        ds, dlam, dsq, dzq = recover_steps(dth, duf, dX, v, vq)
+        dth, duf, dX, dle = solve_K(bc, bf, c2_of(r_c))
+        ds, dlam, dsq, dzq = recover_steps(dth, duf, dX, v, vq, dle)
         ap, ad = step_len(ds, dlam, dsq, dzq)
 
         th_n = ahead(theta, ap, dth)
@@ -735,8 +829,9 @@ def riccati_ipm_core(
                     (sq_n * zq_n).sum(-1) - mu_target).abs()).amax(-1))
             mu_ok = mu_ok & (center_err < 0.002 * mu_target + tol)
         # with cones the dual accuracy is cancellation-limited by the NT
-        # scaling near the boundary: ~sqrt(tol)
-        gd_tol = sqrt_tol if has_soc else 1e3 * tol
+        # scaling near the boundary, with extra rows by the bordered solve's
+        # accuracy at row weights ~1/mu: ~sqrt(tol) either way
+        gd_tol = sqrt_tol if (has_soc or has_ex) else 1e3 * tol
         now_done = mu_ok & (rp_inf < sqrt_tol) & (gd_inf < gd_tol)
         now_bad = step_bad | (mu_n > 1e12)
 
@@ -801,11 +896,105 @@ def recover_XU_stage(theta, uf, x0, c, A, B, Nc: int, maskc=None):
     return X[..., 0].reshape(c.shape), U
 
 
-def riccati_ipm_solve_np(*args, **kwargs):
-    """The numpy frontend of the stage-structured IPM (it threads
-    ``settings["solver_state"]["riccati_warm"]`` across the host SCP loop)
-    belongs to the host dispatcher, which is not ported."""
-    _unsupported("riccati_ipm_solve_np", "ROADMAP §1.9, the host frontend")
+def riccati_ipm_solve_np(base_args, reg_args, u_l, u_u, Nc: int,
+                         settings: Optional[Dict[str, Any]] = None, x_l=None, x_u=None,
+                         u_soc_r=None, ex_G=None, ex_h=None,
+                         device=None) -> Tuple[np.ndarray, np.ndarray, Dict[str, Any]]:
+    """The numpy frontend of the stage-structured IPM (the host-path twin of
+    `ipm.ipm_solve_np`): one subproblem, numpy (X (M, N, xdim), U (M, N,
+    udim), data).
+
+    ``base_args``/``reg_args`` as `ipm.ipm_solve_np` takes them, the control
+    bounds (M, N, udim) both given (the dispatcher fills an absent side with
+    +-inf), state boxes x_l/x_u (one side may be None), ``u_soc_r`` (M, N),
+    ``ex_G (l, n_full)`` / ``ex_h (l,)`` linear rows over the full consensus
+    layout. The host path's defaults of ``ipm_iters``, ``ipm_tol_exp``,
+    ``ipm_kappa`` and the SCP-residual forcing are `ipm.ipm_solve_np`'s.
+    The warm start ``settings["solver_state"]["riccati_warm"]`` (theta
+    (nct,), uf (M, nfu), s, lam (mtot,)[, sq, zq (nq, udim + 1)]) stays on
+    the device between SCP iterations (a numpy or JAX tuple of the same
+    layout is taken as well); X, U and the four scalars come back in ONE
+    transfer. ``data``: solver_state (``riccati_warm``), ipm_mu, ipm_iters,
+    ipm_converged, ipm_failed."""
+    settings = settings or {}
+    dev = default_device() if device is None else torch.device(device)
+    f = np.asarray(base_args[1])
+    M, N, xdim = f.shape
+    udim = np.asarray(base_args[3]).shape[-1]
+    dtype = f.dtype
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
+    T = lambda a: torch.as_tensor(np.array(a, dtype=dtype), device=dev)[None]
+    nc = Nc * udim
+    nct = max(nc, 1)
+    nfu = (N - Nc) * udim
+    has_x = x_l is not None or x_u is not None
+    has_ex = ex_G is not None
+    l_ex = int(np.shape(ex_G)[0]) if has_ex else 0
+    mtot = 2 * nct + 2 * M * nfu + (2 * M * N * xdim if has_x else 0) + l_ex
+    has_soc = u_soc_r is not None
+    nq = (Nc + M * (N - Nc)) if has_soc else 0
+
+    warm = None
+    prev_state = settings.get("solver_state") or {}
+    cand = prev_state.get("riccati_warm") if isinstance(prev_state, dict) else None
+    if cand is not None and len(cand) >= 4:
+        th_w, uf_w, s_w, lam_w = cand[:4]
+        shapes_ok = (tuple(np.shape(th_w)) == (nct,) and tuple(np.shape(uf_w)) == (M, nfu)
+                     and tuple(np.shape(s_w)) == (mtot,)
+                     and tuple(np.shape(lam_w)) == (mtot,))
+        if has_soc:
+            shapes_ok = shapes_ok and len(cand) >= 6 \
+                and tuple(np.shape(cand[4])) == (nq, udim + 1)
+        if shapes_ok:
+            # the port's own tuple stays on the device across SCP iterations
+            warm = tuple(
+                z[None] if isinstance(z, torch.Tensor) and z.dtype == tdt and z.device == dev
+                else T(z) for z in cand)
+
+    iters = int(settings.get("ipm_iters", 30))
+    tol_exp = int(settings.get("ipm_tol_exp", -8 if dtype == np.float64 else -5))
+    kappa = float(settings.get("ipm_kappa", 0.0 if dtype == np.float64 else 1e-7))
+
+    # inexact-Newton forcing from the SCP residual (ipm_solve_np's rule)
+    tol_dyn = None
+    r_scp = settings.get("scp_residual")
+    adaptive_dflt = "ipm_tol_exp" not in settings
+    if r_scp is not None and np.isfinite(r_scp) \
+            and settings.get("ipm_adaptive_tol", adaptive_dflt):
+        r = min(float(r_scp), 1e3)
+        tol_dyn = torch.full((1,), min(1e-3 * r * r, 1e-3), dtype=tdt, device=dev)
+
+    kw = {}
+    # slew coupling present: route through the augmented stage state
+    if any(np.any(np.asarray(a) != 0) for a in reg_args[2:4]):
+        kw.update(slew_reg=T(reg_args[2]), slew_reg0=T(reg_args[3]), slew_um1=T(reg_args[4]))
+    if has_x:
+        # one-sided state boxes: the absent side at +-inf (the core masks it)
+        kw.update(x_l=T(x_l if x_l is not None else np.full((M, N, xdim), -np.inf)),
+                  x_u=T(x_u if x_u is not None else np.full((M, N, xdim), np.inf)))
+    if has_soc:
+        kw["u_soc_r"] = T(np.broadcast_to(np.asarray(u_soc_r, dtype=dtype), (M, N)))
+    if float(settings.get("mu_target", 0.0) or 0.0) > 0.0:
+        kw["mu_target"] = float(settings["mu_target"])
+    if has_ex:
+        kw.update(ex_G=T(ex_G), ex_h=T(ex_h))
+    X, U, stats = riccati_ipm_solve_scp(
+        *(T(a) for a in base_args), T(reg_args[0]), T(reg_args[1]), T(u_l), T(u_u),
+        Nc=Nc, iters=iters, tol_exp=tol_exp, kappa=kappa, warm=warm, tol_dynamic=tol_dyn,
+        tau=float(settings["ipm_tau"]) if settings.get("ipm_tau") is not None else None,
+        **kw)
+    # ONE packed device->host transfer; the warm tuple stays on the device
+    X_h, U_h, mu_h, it_h, conv_h, fail_h = (a[0] for a in to_host(
+        [X, U, stats["mu"], stats["iters"], stats["converged"], stats["failed"]]))
+    names = ("theta", "uf", "s", "lam") + (("sq", "zq") if has_soc else ())
+    data = dict(
+        solver_state=dict(riccati_warm=tuple(stats[k][0] for k in names)),
+        ipm_mu=float(mu_h),
+        ipm_iters=int(it_h),
+        ipm_converged=bool(conv_h > 0),
+        ipm_failed=bool(fail_h > 0),
+    )
+    return X_h, U_h, data
 
 
 def riccati_ipm_solve_scp(x0, f, fx, fu, X_prev, U_prev, Q, R, X_ref, U_ref,
@@ -822,10 +1011,10 @@ def riccati_ipm_solve_scp(x0, f, fx, fu, X_prev, U_prev, Q, R, X_ref, U_ref,
     (B, M, N, xdim) apply to the ORIGINAL state entries (the augmentation's
     control-memory tail is unbounded). ``u_soc_r`` (B, M, N): per-stage
     control-norm radii (+inf: no cone; the consensus stages take particle
-    0's). Returns (X, U, stats), stats with theta and uf beside the core's."""
-    if ex_G is not None or ex_h is not None:
-        _unsupported("linear extra rows (ex_G, ex_h)",
-                     "ROADMAP §1.9, with the host dispatcher")
+    0's). ``ex_G`` (B, l, n_full) / ``ex_h`` (B, l): linear rows g'z <= h
+    over the full consensus layout [u_cons; u_free_1..M; x_1..M] (the
+    original states: the slew augmentation's tail is not a variable).
+    Returns (X, U, stats), stats with theta and uf beside the core's."""
     Bn, M, N = f.shape[:3]
     xdim, udim = x0.shape[-1], U_prev.shape[-1]
     c, Qt, xt, Rt, ut = _scp_stage_terms(x0, f, fx, fu, X_prev, U_prev, Q, R,
@@ -844,6 +1033,12 @@ def riccati_ipm_solve_scp(x0, f, fx, fu, X_prev, U_prev, Q, R, X_ref, U_ref,
     if u_soc_r is not None:
         r = u_soc_r.expand(Bn, M, N)
         kw = dict(kw, soc_rc=r[:, 0, :Nc], soc_rf=r[:, :, Nc:])
+    if ex_h is not None:
+        # split the rows into the core's (theta, u_free, state) blocks
+        l, nfu = ex_h.shape[-1], (N - Nc) * udim
+        ex_Gc = torch.nn.functional.pad(ex_G[..., :nc], (0, max(nc, 1) - nc))
+        kw = dict(kw, ex_Gc=ex_Gc, ex_Gf=ex_G[..., nc:nc + M * nfu].reshape(Bn, l, M, nfu),
+                  ex_Gx=ex_G[..., nc + M * nfu:].reshape(Bn, l, M, N, xdim), ex_h=ex_h)
     theta, uf, stats = riccati_ipm_core(
         x0s, c, A, B, Qt, xt, Rt, ut, lo_c, hi_c, ul[:, :, nc:], uu[:, :, nc:],
         Nc=Nc, x_lo=x_l, x_hi=x_u, **kw)

@@ -1,10 +1,11 @@
 """`pmpc_tpu_torch.solvers.riccati_ipm` against the JAX package, f64, CPU.
 
 The sweeps (factor, linear backward / forward, consensus solve, the hand
-adjoint against `jax.grad`) to 1e-10 and the IPM (`riccati_ipm_solve_scp`)
-to 1e-8 in X and U with equal iteration counts and flags, each over B = 2
-lanes of different `oracle.random_problem` data against `jax.vmap` of the
-JAX function."""
+adjoint against `jax.grad`) to 1e-10 and the IPM (`riccati_ipm_solve_scp`,
+linear extra rows included) to 1e-8 in X and U with equal iteration counts
+and flags, each over B = 2 lanes of different `oracle.random_problem` data
+against `jax.vmap` of the JAX function; the numpy frontend
+`riccati_ipm_solve_np` against the JAX one to 1e-8."""
 
 import numpy as np
 import pytest
@@ -102,7 +103,7 @@ def test_hand_adjoint_matches_jax_grad(M, N, Nc, slew):
 # ---- the IPM ----------------------------------------------------------------
 
 def _solve_both(p, Nc, u_box=0.5, slew=False, x_l=None, x_u=None, warm=None,
-                tol_dynamic=None, lanes=slice(None), **kw):
+                tol_dynamic=None, lanes=slice(None), ex_G=None, ex_h=None, **kw):
     """`riccati_ipm_solve_scp` of both packages on problem ``p`` (B, M, ...):
     ((X, U, stats) torch, (X, U, stats) JAX under `jax.vmap`). ``lanes``
     cuts the torch call to some lanes."""
@@ -115,6 +116,8 @@ def _solve_both(p, Nc, u_box=0.5, slew=False, x_l=None, x_u=None, warm=None,
         arrs.update(x_l=x_l, x_u=x_u)
     if tol_dynamic is not None:
         arrs["tol_dynamic"] = np.asarray(tol_dynamic)
+    if ex_G is not None:
+        arrs.update(ex_G=ex_G, ex_h=ex_h)
     base = [p[k] for k in KEYS + ["reg_x", "reg_u"]]
     jwarm = None if warm is None else tuple(jnp.asarray(a) for a in warm)
     ref = jax.vmap(lambda a, d, w: jipm.riccati_ipm_solve_scp(*a, Nc=Nc, warm=w, **d, **kw))(
@@ -250,13 +253,109 @@ def test_unported_options_raise_naming_the_roadmap():
     p = problem(1, 2, 6)
     base = [tt(p[k]) for k in KEYS + ["reg_x", "reg_u"]]
     box = [tt(np.full(p["U_prev"].shape, v)) for v in (-0.5, 0.5)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tipm.riccati_ipm_solve_scp(*base, *box, Nc=2, ex_G=torch.zeros(B, 1, 4),
-                                   ex_h=torch.ones(B, 1))
-    # the cones and the central-path stop are ported (tests/test_torch_soc.py,
-    # tests/test_torch_ipm_options.py)
-    for kw in (dict(u_soc_r=torch.ones(B, 2, 6)), dict(mu_target=0.1)):
+    # the linear extra rows, the cones, the central-path stop and the numpy
+    # frontend are ported (the rows: test_linear_extra_rows_* below; the
+    # cones and mu_target: tests/test_torch_soc.py, tests/test_torch_ipm_options.py)
+    n_full = 2 * 2 + 2 * 4 * 2 + 2 * 6 * 4
+    for kw in (dict(u_soc_r=torch.ones(B, 2, 6)), dict(mu_target=0.1),
+               dict(ex_G=torch.zeros(B, 1, n_full, dtype=torch.float64), ex_h=torch.ones(B, 1))):
         X, U, st = tipm.riccati_ipm_solve_scp(*base, *box, Nc=2, **kw)
         assert torch.isfinite(U).all() and st["converged"].all()
-    with pytest.raises(NotImplementedError, match="ROADMAP §1.9"):
-        tipm.riccati_ipm_solve_np()
+    assert callable(tipm.riccati_ipm_solve_np)
+    # what stays unported in the stage-structured route raises, naming the roadmap
+    from pmpc_tpu_torch import torch_scp
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        torch_scp.build_scp_solver(lambda x, u: x, N=6, xdim=4, udim=2, M=2, method="priccati")
+
+
+def _extra_rows(p, Nc, seed):
+    """Two linear rows per lane over the full layout [u_cons; u_free; x],
+    (B, 3, n_full): the first consensus stage's control sum (or the first
+    free stage's, Nc = 0) at most 0.3; a random row with 0.2 of room at zero
+    controls, where the box holds; and an inactive row (h = +inf)."""
+    Bn, M, N, xdim = p["f"].shape
+    udim = p["fu"].shape[-1]
+    nc, nf = Nc * udim, (N - Nc) * udim
+    n_full = nc + M * nf + M * N * xdim
+    rng = np.random.default_rng(seed)
+    G = np.zeros((Bn, 3, n_full))
+    G[:, 0, :udim] = 1.0
+    G[:, 1] = 0.5 * rng.normal(size=(Bn, n_full)) * (rng.uniform(size=(Bn, n_full)) < 0.4)
+    G[:, 2] = rng.normal(size=(Bn, n_full))
+    x, X0 = p["x0"], []
+    for j in range(N):  # the linearized dynamics at zero controls
+        x = p["f"][:, :, j] - np.einsum("bmij,bmj->bmi", p["fu"][:, :, j], p["U_prev"][:, :, j]) \
+            + (np.einsum("bmij,bmj->bmi", p["fx"][:, :, j], x - p["X_prev"][:, :, j - 1])
+               if j else 0.0)
+        X0.append(x)
+    X0 = np.stack(X0, 2).reshape(Bn, -1)
+    h = np.stack([np.full(Bn, 0.3), (G[:, 1, nc + M * nf:] * X0).sum(-1) + 0.2,
+                  np.full(Bn, np.inf)], -1)
+    return G, h
+
+
+def test_linear_extra_rows_match_vmapped_jax():
+    """`riccati_ipm_solve_scp` with ``ex_G``/``ex_h`` against the JAX one under
+    `jax.vmap`, 1e-8 with equal counts: Nc = 0 (the padded theta block),
+    slew (the rows' state block is the original states, not the
+    augmentation's tail) and state rows beside the extra rows in the flat
+    layout. (Nc > 0: tests/test_torch_dispatch.py and chip_smoke.py phase 23.)"""
+    M, N, Nc = 2, 8, 0
+    p = problem(70, M, N)
+    G, h = _extra_rows(p, Nc, seed=M + N)
+    kw = dict(ex_G=G, ex_h=h, slew=True, iters=60, x_l=np.full(p["X_prev"].shape, -50.0),
+              x_u=np.full(p["X_prev"].shape, 50.0))
+    out, ref = _solve_both(p, Nc, **kw)
+    _hold(out, ref)
+    assert out[2]["converged"].all() and not out[2]["failed"].any()
+    # the rows hold, and bind
+    X, U = out[0].numpy(), out[1].numpy()
+    z = np.concatenate([U[:, 0, :Nc].reshape(B, -1), U[:, :, Nc:].reshape(B, -1),
+                        X.reshape(B, -1)], -1)
+    rows = np.einsum("bln,bn->bl", G, z) - h
+    assert (rows[:, :2] <= 1e-7).all() and (np.abs(rows[:, :2]) < 1e-6).any()
+    assert out[2]["lam"].shape[-1] == np.asarray(ref[2]["lam"]).shape[-1]
+
+
+def test_riccati_ipm_solve_np_wraps_the_core_and_reads_back_once(monkeypatch):
+    """The numpy frontend on one problem with slew, a one-sided state box and
+    linear rows is the core on that problem (`riccati_ipm_solve_scp` at
+    B = 1, held against the JAX core above): X, U and the flags equal, the
+    warm tuple kept on the device, X, U and the four scalars read back in
+    ONE transfer; its warm tuple starts the next solve. (Against the JAX
+    `riccati_ipm_solve_np`, a JAX warm tuple included:
+    tests/test_torch_dispatch.py.)"""
+    from pmpc_tpu_torch import utils as tutils
+
+    M, N, Nc = 2, 8, 2
+    p = problem(5, M, N)
+    G, h = _extra_rows(p, Nc, seed=3)
+    one = {k: v[0] for k, v in p.items()}
+    base = tuple(one[k] for k in KEYS)
+    reg = tuple(one[k] for k in ("reg_x", "reg_u", "slew_reg", "slew_reg0", "slew_um1"))
+    ub = np.full((M, N, UDIM), 0.5)
+    kw = dict(x_u=np.full((M, N, XDIM), 50.0), ex_G=G[0], ex_h=h[0])
+    st = dict(ipm_iters=60, ipm_tol_exp=-10)
+    reads, real = [], tutils.to_host
+    monkeypatch.setattr("pmpc_tpu_torch.solvers.riccati_ipm.to_host",
+                        lambda ts: reads.append(len(ts)) or real(ts))
+    Xt, Ut, dt = tipm.riccati_ipm_solve_np(base, reg, -ub, ub, Nc, settings=st, device="cpu",
+                                           **kw)
+    assert reads == [6]
+    T = lambda a: tt(np.asarray(a))[None]
+    Xc, Uc, sc = tipm.riccati_ipm_solve_scp(
+        *(T(a) for a in base), T(reg[0]), T(reg[1]), T(-ub), T(ub), Nc=Nc, slew_reg=T(reg[2]),
+        slew_reg0=T(reg[3]), slew_um1=T(reg[4]), x_l=T(np.full((M, N, XDIM), -np.inf)),
+        x_u=T(kw["x_u"]), ex_G=T(G[0]), ex_h=T(h[0]), iters=60, tol_exp=-10, kappa=0.0)
+    np.testing.assert_array_equal(Ut, Uc[0].numpy())
+    np.testing.assert_array_equal(Xt, Xc[0].numpy())
+    assert (dt["ipm_iters"], dt["ipm_converged"], dt["ipm_failed"]) == \
+        (int(sc["iters"][0]), bool(sc["converged"][0]), bool(sc["failed"][0]))
+    assert dt["ipm_converged"] and all(isinstance(a, torch.Tensor) for a in
+                                       dt["solver_state"]["riccati_warm"])
+    _, Uw, dw = tipm.riccati_ipm_solve_np(base, reg, -ub, ub, Nc, device="cpu",
+                                          settings=dict(st, solver_state=dt["solver_state"]),
+                                          **kw)
+    close(Uw, Ut, 1e-8)
+    assert dw["ipm_iters"] < dt["ipm_iters"]

@@ -548,7 +548,10 @@ def test_port_imports_no_jax():
             "pmpc_tpu_torch.solvers.extras", "pmpc_tpu_torch.solvers.cvar",
             "pmpc_tpu_torch.conebatch", "pmpc_tpu_torch.convert",
             "pmpc_tpu_torch.solvers.expbarrier", "pmpc_tpu_torch.solvers.barrier",
-            "pmpc_tpu_torch.solvers.second_order"} <= set(mods)
+            "pmpc_tpu_torch.solvers.second_order", "pmpc_tpu_torch.solvers.dispatch",
+            "pmpc_tpu_torch.scp", "pmpc_tpu_torch.problem", "pmpc_tpu_torch.canonical",
+            "pmpc_tpu_torch.filters", "pmpc_tpu_torch.accelerated", "pmpc_tpu_torch.tune",
+            "pmpc_tpu_torch.experimental"} <= set(mods)
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
