@@ -128,8 +128,30 @@ then phase 9 once more for the shapes phases 19-22 launched;
    iteration; then the flagship instance through method="riccati" with
    linear extra rows restating the first stage's bounds at +-0.3 against the
    same bounds as boxes (U to 1e-6); phase 9 once more. Phase 23 prints its
-   seconds. Then one JSON line for the kernels and, last, one JSON line for
-   the run. Every solver phase sets
+   seconds.
+24. batched serving (`pmpc_tpu_torch.solve_problems`) with the Dubins step
+   through `make_f_fx_fu_fn`: (a) the reference's GPU demo batch, 1000
+   single-particle problems (N=20, box +-1, seeded x0), `warmup.warm_fused`
+   at that shape first, then the fused route in f64 (res_tol 1e-5; max_it
+   60: at 25, 17 of 1000 converge, on the CPU) and in f32 (1e-3):
+   K1 alone at (1000, 40, 40), boxes to 1e-5, f64 converged >= 0.95 B,
+   three problems against their serial `solve` (1e-4), then the stacked
+   host route at max_it 5 (ms an SCP iteration); (b) config 3's width as 512
+   problem dicts with ||u_j|| <= 0.9 as SOC extra_cstrs plus a linear row,
+   f32 and f64 on the structured route of the cone batcher (the composed
+   program never built, K2 at (512, 40, 40)): box, cone and row held in both,
+   f64 converged >= 0.95 B, the histogram of SCP iterations per problem;
+   then at B=8, f64, tight, against the composed route (1e-6); (c) 64
+   problems of the flagship's width (M=32, N=30, Nc=5, box +-1) with one
+   binding linear row each: K1 at (2048, 50, 50), K2 at (64, 10, 10),
+   consensus and the row to 1e-6, one problem against its serial `solve`
+   (1e-6); (d) `sensitivity.sensitivity_L` at t=0 on one flagship particle
+   (N=30, logbarrier alpha 100, f64) at the smoothed optimum, the card's
+   gain against the CPU's (1e-8), ms a call. Then phase 9 once more, and
+   phase 24 prints its seconds. The farm (`remote`) is not driven here: it
+   needs pyzmq, zstandard and cloudpickle.
+Then one JSON line for the kernels and, last, one JSON line for the run.
+Every solver phase sets
 the launch counts to 0 before its timed call and reads them after it.
 """
 
@@ -143,6 +165,7 @@ import numpy as np
 import torch
 
 import pmpc_tpu_torch
+from pmpc_tpu_torch import conebatch, sensitivity, warmup
 from pmpc_tpu_torch.conebatch import _canon_problem, solve_problems_cone
 from pmpc_tpu_torch.dynamics import dynamics_violation, linearize
 from pmpc_tpu_torch.flagship import (EXP_KAPPA, EXP_VMAX, HEADLINE_KW, KEEP_IN_C, KEEP_IN_R,
@@ -185,13 +208,15 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # further shapes the phases launch: (adds a diagonal, batch, n)
 OTHER_SHAPES = ((True, 8, 50), (False, 1, 10), (False, 32, 10), (False, 2048, 50),
                 (False, 512, 40), (False, 128, 50), (False, 4, 10), (False, 64, 45),
-                (False, 64, 71), (False, 64, 73), (True, 32, 50), (False, 32, 50))
+                (False, 64, 71), (False, 64, 73), (True, 32, 50), (False, 32, 50),
+                (True, 1000, 40), (False, 512, 1), (False, 64, 1))
 K2_WIDE = (2048, 50)  # K2's second timed shape, from the state-box phase
 K2_CONE = (512, 40)  # K2's third timed shape: config 3's cone Newton blocks
 K2_CVAR = (64, 45)  # K2 in f64: the CVaR program's Newton matrix (phase 17)
 K4_EXTRAS = (64, 71)  # K4 in f64: the extras program's (phase 18)
 K4_EXP = (64, 73)  # K4 in f64: the exp-cone extras program's barrier Newton matrix (phase 20)
 K2_SMOOTH = (32, 50)  # K2: the smooth Newton's per-particle blocks (phase 21)
+K1_SERVE = (1000, 40)  # K1: the reference's 1000-problem GPU batch, fused (phase 24 (a))
 B_CONFIG3 = 512
 B_CONE, M_CVAR, K_CVAR, B_CHECK = 64, 4, 3, 4  # phases 17-20
 ALPHA_LOG, ALPHA_SQ = 50.0, 8.0  # phases 19 and 21-22: logbarrier and squareplus alpha
@@ -321,7 +346,7 @@ def phase_kernels(dev, card):
     for diag, B, n in OTHER_SHAPES:
         for dtype in (torch.float32, torch.float64):
             err = check(diag, *spd_inputs(B, n, dtype, dev))
-            if (B, n) in (K2_WIDE, K2_CONE, K2_CVAR, K4_EXTRAS, K4_EXP, K2_SMOOTH):
+            if (B, n) in (K2_WIDE, K2_CONE, K2_CVAR, K4_EXTRAS, K4_EXP, K2_SMOOTH, K1_SERVE):
                 other[(B, n, dtype)] = {"shape": [B, n, n], "dtype": str(dtype)[6:],
                                         "max_abs_err": err}
     for n in (1, 7, 8, 9, 33, 63, 64, 65, 72, 95, 96):
@@ -375,7 +400,10 @@ def phase_kernels(dev, card):
     f32, f64 = torch.float32, torch.float64
     results["inv_cholesky"]["other_shapes"] = [other[K2_WIDE + (f32,)], other[K2_CONE + (f32,)],
                                                other[K2_CVAR + (f64,)],
-                                               other[K2_SMOOTH + (f32,)]]
+                                               other[K2_SMOOTH + (f32,)],
+                                               other[K2_CONE + (f64,)]]
+    results["inv_cholesky_diag"]["other_shapes"] = [other[K1_SERVE + (f64,)],
+                                                    other[K1_SERVE + (f32,)]]
     results["inv_cholesky_big"]["other_shapes"] = [other[K4_EXTRAS + (f64,)],
                                                    other[K4_EXP + (f64,)]]
     timed = [(name, diag, B, n, f32, results[name])
@@ -387,6 +415,8 @@ def phase_kernels(dev, card):
     timed.insert(6, ("inv_cholesky", False, *K2_SMOOTH, f32, other[K2_SMOOTH + (f32,)]))
     timed.append(("inv_cholesky_big", False, *K4_EXTRAS, f64, other[K4_EXTRAS + (f64,)]))
     timed.append(("inv_cholesky_big", False, *K4_EXP, f64, other[K4_EXP + (f64,)]))
+    timed += [("inv_cholesky_diag", True, *K1_SERVE, dt, other[K1_SERVE + (dt,)])
+              for dt in (f64, f32)]
     for name, diag, B, n, dtype, r in timed:
         A, w = spd_inputs(B, n, dtype, dev)
         fns = {"plain": lambda: run(diag, A, w, plain=True),
@@ -1534,6 +1564,310 @@ def phase_host_frontend(dev, card):
     require(abs(binds - 0.3) < 1e-6, "[23] (e) the restated bounds do not bind")
 
 
+# ---- phase 24: batched serving -------------------------------------------------------
+
+B_SERVE, N_SERVE, IT_SERVE = 1000, 20, 60  # (a); 25 SCP iterations converge 17 of 1000 in f64
+SERVE_SAMPLES = (0, 499, 999)  # (a): the problems held against their serial solves
+SERVE_TOL = 1e-4  # (a): |U_fused - U_serial|, two SCP stops at res_tol 1e-5
+IT_CONE_SERVE = 50  # (b): at config 3's 25 (it has AA, this route none) ~3% stop short
+B_AGREE_STRUCT = 8  # (b): the structured route against the composed one
+B_FLAG_SERVE = 64  # (c): problems of the flagship's width
+
+
+def served_problems(B, f_fn, dtype, max_it, res_tol, seed=24):
+    """(a): B single-particle Dubins problems (N = 20, box +-1, Q = I, R =
+    1e-2 I, the JAX API's default regularization) with x0 = ones + 0.2 N(0, 1)
+    from ``seed``, as problem dicts of `solve_problems`."""
+    N, xdim, udim = N_SERVE, 4, 2
+    x0 = (np.ones(xdim) + 0.2 * np.random.default_rng(seed).normal(size=(B, xdim))).astype(dtype)
+    Q = np.tile(np.eye(xdim, dtype=dtype), (N, 1, 1))
+    R = np.tile((1e-2 * np.eye(udim)).astype(dtype), (N, 1, 1))
+    box = np.ones((N, udim), dtype)
+    return [dict(f_fx_fu_fn=f_fn, Q=Q, R=R, x0=x0[i], u_l=-box, u_u=box, max_it=max_it,
+                 res_tol=res_tol, solver_settings=dict(dtype=dtype)) for i in range(B)]
+
+
+def serve_call(problems, dev, **kw):
+    """One `solve_problems` with the launch counts set to 0 before it:
+    (out, seconds, launches, the launches by (name, batch, n, dtype))."""
+    chol_inv.reset_launch_counts()
+    before = chol_inv.SHAPES.copy()
+    t0 = time.perf_counter()
+    out = pmpc_tpu_torch.solve_problems(problems, device=dev, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return out, dt, dict(chol_inv.LAUNCHES), chol_inv.SHAPES - before
+
+
+def stack_out(out):
+    """The per-problem (X, U, data) of a batch as stacked (U, converged, resid)."""
+    U = np.stack([u for _, u, _ in out])
+    conv = np.array([d["converged"] for _, _, d in out])
+    return U, conv, np.array([d["resid"] for _, _, d in out])
+
+
+def decades(resid):
+    """How many residuals fall in each decade [1e-k, 1e-k+1), k = 12..1."""
+    edges = list(range(-12, 1))
+    counts = np.histogram(np.log10(np.maximum(resid, 1e-300)), bins=edges)[0]
+    return {f"1e{a}": int(c) for a, c in zip(edges[:-1], counts) if c}
+
+
+def phase_serving_fused(dev, card):
+    """[24] (a) the reference's GPU demo batch: 1000 single-particle problems
+    through the fused route, f64 and f32, then three of them against their
+    serial solves, then the stacked host route. Returns the K1 launches at
+    (1000, 40, 40) of the f64 and the f32 call."""
+    f_fn = pmpc_tpu_torch.make_f_fx_fu_fn(dubins, device=dev)
+    t0 = time.perf_counter()
+    for dtype in (torch.float64, torch.float32):
+        warmup.warm_fused(N_SERVE, B_SERVE, 0, 2, True, False, 0, device=dev, dtype=dtype)
+    print(f"[24] (a) warmup.warm_fused at M={B_SERVE}, N={N_SERVE} (f64, f32): "
+          f"{time.perf_counter() - t0:.1f} s")
+    by = {}
+    for dtype, res_tol in ((np.float64, 1e-5), (np.float32, 1e-3)):
+        name = np.dtype(dtype).name
+        probs = served_problems(B_SERVE, f_fn, dtype, IT_SERVE, res_tol)
+        out, dt, launches, shapes = serve_call(probs, dev, fused=True)
+        U, conv, resid = stack_out(out)
+        its = out[0][2]["iters"]
+        print(f"[24] (a) solve_problems(fused=True) B={B_SERVE} N={N_SERVE} box +-1 {name} "
+              f"res_tol {res_tol:g} max_it {IT_SERVE}: {dt * 1e3:.1f} ms a call, converged "
+              f"{conv.sum()} of {B_SERVE} ({conv.sum() / dt:.1f} converged solves/s), "
+              f"{its} SCP iterations (one scenario: every problem runs to the slowest), "
+              f"final residuals by decade {decades(resid)}; launches {launches} [{card}]")
+        tdt = torch.float64 if dtype == np.float64 else torch.float32
+        require(np.isfinite(U).all() and U.shape == (B_SERVE, N_SERVE, 2)
+                and np.abs(U).max() <= 1 + 1e-5,
+                f"[24] (a) {name}: output not finite, of the wrong shape or off the box")
+        require(only_launched(launches, ("inv_cholesky_diag",))
+                and shapes[("inv_cholesky_diag", B_SERVE, 40, tdt)] > 0,
+                f"[24] (a) {name}: expected K1 alone at ({B_SERVE}, 40, 40): {launches}")
+        by[dtype] = (probs, U, conv, shapes[("inv_cholesky_diag", B_SERVE, 40, tdt)])
+    probs64, U64, conv64, _ = by[np.float64]
+    require(conv64.sum() >= 0.95 * B_SERVE,
+            f"[24] (a) f64 converged {conv64.sum()} < 0.95 x {B_SERVE}")
+    print(f"    |U32 - U64|_inf = {np.abs(by[np.float32][1] - U64).max():.3e}")
+    for i in SERVE_SAMPLES:
+        X_s, U_s, _ = pmpc_tpu_torch.solve(**dict(probs64[i], verbose=False, device=dev))
+        err = np.abs(U_s - U64[i]).max()
+        print(f"    problem {i}: |U_fused - U_serial solve|_inf = {err:.3e} (tol {SERVE_TOL:g})")
+        require(err <= SERVE_TOL, f"[24] (a) problem {i}: fused and serial differ by {err:.3e}")
+    # the stacked host route: the batch as the particle axis of one host solve
+    stacked = [dict(p, max_it=5, res_tol=0.0) for p in probs64]
+    out, dt, launches, _ = serve_call(stacked, dev)
+    n_it = len(out[0][2]["hist"])
+    print(f"[24] (a) solve_problems (stacked host route) B={B_SERVE} f64, {n_it} SCP "
+          f"iterations: {dt * 1e3:.1f} ms a call, {1e3 * dt / n_it:.1f} ms an SCP iteration "
+          f"({1e3 * np.mean(out[0][2]['t_aff_solve']):.1f} ms a subproblem); launches "
+          f"{launches} [{card}]")
+    require(n_it == 5 and np.isfinite(np.stack([u for _, u, _ in out])).all()
+            and launches["inv_cholesky_diag"] > 0,
+            f"[24] (a) the stacked route ran {n_it} iterations or launched no K1: {launches}")
+    return {np.dtype(dt).name: by[dt][3] for dt in by}
+
+
+def served_cone_problems(B, f_fn, dtype, max_it, res_tol, seed=1, **ss):
+    """(b): config 3's instance as B problem dicts (one car, M = 1, N = 20,
+    box +-1, x0 = ones + 0.02 N(0, 1) from ``seed``) with ||u_j|| <= 0.9 as
+    per-stage SOC extra_cstrs plus one linear row."""
+    M, N, xdim, udim = 1, N_SERVE, 4, 2
+    x0 = np.ones((B, M, xdim)) + 0.02 * np.random.default_rng(seed).normal(size=(B, M, xdim))
+    Q = np.tile(np.eye(xdim), (M, N, 1, 1))
+    R = np.tile(1e-2 * np.eye(udim), (M, N, 1, 1))
+    box = np.ones((M, N, udim))
+    ex = stage_cone_extras(M, N, 0, SOC_R3)
+    return [dict(f_fx_fu_fn=f_fn, Q=Q, R=R, x0=x0[i], u_l=-box, u_u=box, reg_x=1.0,
+                 reg_u=0.1, max_it=max_it, res_tol=res_tol,
+                 solver_settings=dict(dtype=dtype, extra_cstrs=ex, **ss)) for i in range(B)]
+
+
+def served_structured(problems, dev):
+    """`solve_problems(fused=True)` of cone-featured problems that must take
+    the structured route: any use of the composed cone program raises, and
+    the cone batcher's stats are kept. `serve_call`'s results and the
+    stats."""
+    real_prog, real_batch, stats = compose.composed_solve_batch_device, \
+        conebatch.solve_problems_cone, {}
+
+    def refuse(*a, **k):
+        raise AssertionError("a structured signature built the composed cone program")
+
+    compose.composed_solve_batch_device = conebatch.composed_solve_batch_device = refuse
+    conebatch.solve_problems_cone = lambda *a, **k: real_batch(*a, stats=stats, **k)
+    try:
+        res = serve_call(problems, dev, fused=True)
+    finally:
+        compose.composed_solve_batch_device = conebatch.composed_solve_batch_device = real_prog
+        conebatch.solve_problems_cone = real_batch
+    return res + (stats,)
+
+
+def phase_serving_cones(dev, card):
+    """[24] (b) config 3's width as a served batch on the structured route,
+    f32 and f64, then the structured route against the composed one at
+    B = 8. Returns the f64 call's K2 launches at (512, 40, 40)."""
+    f_fn = pmpc_tpu_torch.make_f_fx_fu_fn(dubins, device=dev)
+    B = B_CONFIG3
+    out_by = {}
+    for dtype in (np.float32, np.float64):
+        name = np.dtype(dtype).name
+        tdt = torch.float64 if dtype == np.float64 else torch.float32
+        probs = served_cone_problems(B, f_fn, dtype, IT_CONE_SERVE, 1e-3)
+        served_structured([dict(p, max_it=2) for p in probs[:4]], dev)  # the warm-up
+        out, dt, launches, shapes, stats = served_structured(probs, dev)
+        ok = [o for o in out if o[1] is not None]
+        U = np.stack([u for _, u, _ in ok])
+        conv = np.array([d["converged"] for _, _, d in ok])
+        hist = np.bincount(stats["scp_iters"])
+        print(f"[24] (b) solve_problems(fused=True) (structured route {stats['structured']}) B={B} "
+              f"M=1 N={N_SERVE} box +-1, ||u_j|| <= {SOC_R3} as SOC extras + a linear row, "
+              f"{name}: {dt * 1e3:.1f} ms a call, converged {conv.sum()} of {B} "
+              f"({conv.sum() / dt:.1f} converged solves/s), failed {B - len(ok)}, "
+              f"{len(stats['t_step'])} SCP iterations; problems by SCP iterations run "
+              f"{ {i: int(c) for i, c in enumerate(hist) if c} }; IPM iterations a call "
+              f"(max over lanes) {stats['ipm_iters'].max(1).tolist()}; launches {launches} "
+              f"[{card}]")
+        norm, u_max = np.linalg.norm(U, axis=-1).max(), np.abs(U).max()
+        row = U[:, 0, 0].sum(-1).max()
+        print(f"    max |u| {u_max:.7f}, max ||u_j|| {norm:.7f}, max sum(u_0) {row:.4f} "
+              f"(row <= 10)")
+        require(stats["structured"] and len(ok) == B and np.isfinite(U).all(),
+                f"[24] (b) {name}: not the structured route, or failed problems")
+        require(u_max <= 1 + 1e-5 and norm <= SOC_R3 + 1e-4 and row <= 10 + 1e-5,
+                f"[24] (b) {name}: box {u_max}, cone {norm} or row {row} violated")
+        require(shapes[("inv_cholesky", B, 40, tdt)] > 0 and launches["inv_cholesky_diag"] == 0,
+                f"[24] (b) {name}: K2 not at ({B}, 40, 40) or K1 launched: {launches}")
+        out_by[dtype] = (U, conv, shapes[("inv_cholesky", B, 40, tdt)])
+    U32, _, _ = out_by[np.float32]
+    U64, conv64, launches64 = out_by[np.float64]
+    require(conv64.sum() >= 0.95 * B, f"[24] (b) f64 converged {conv64.sum()} < 0.95 x {B}")
+    print(f"    |U32 - U64|_inf = {np.abs(U32 - U64).max():.3e}")
+    # the structured route against the composed cone program, f64, 25 SCP
+    # iterations of tight subproblem solves each, the JAX API's default
+    # regularization (reg_u 1e-2), at tau 0.95: the tau the JAX structured
+    # route runs with cones. At the IPM's default 0.99 (F5) lane 1's
+    # subproblem of SCP iteration 8 crawls to a cap of 100 and ends with mu
+    # 1.065e-8, above the hard-fail line 1e-8, so the lane freezes and the
+    # routes end 1.0e-1 apart on the H100; the same subproblem does so on
+    # the CPU and with the plain factor, and at 0.95 the JAX IPM crawls on
+    # it as the port's does (163 iterations): ROADMAP §3 F13,
+    # `python3 -m pmpc_tpu_torch.ipm_crawl`, tests/test_torch_ipm_crawl.py.
+    tight = dict(ipm_tol_exp=-10, ipm_iters=200, ipm_tau=0.95)
+    probs = [{k: v for k, v in p.items() if k not in ("reg_x", "reg_u")}
+             for p in served_cone_problems(B_AGREE_STRUCT, f_fn, np.float64, 25, 0.0,
+                                           **tight)]
+    out_s, t_s, _, _, _ = served_structured(probs, dev)
+    composed = [dict(p, solver_settings=dict(p["solver_settings"], extras_structured=False))
+                for p in probs]
+    out_c, t_c, _, _ = serve_call(composed, dev, fused=True)
+    err = max(np.abs(a[1] - b[1]).max() for a, b in zip(out_s, out_c))
+    print(f"[24] (b) B={B_AGREE_STRUCT} f64, 25 SCP iterations, ipm_tol_exp -10, tau 0.95, reg_u 1e-2: structured "
+          f"{t_s * 1e3:.1f} ms ({out_s[0][2]['iters']} SCP iterations), composed "
+          f"{t_c * 1e3:.1f} ms ({out_c[0][2]['iters']}); |U_structured - U_composed|_inf = "
+          f"{err:.3e} (tol 1e-6) [{card}]")
+    require(err <= 1e-6, f"[24] (b) structured and composed routes differ by {err:.3e}")
+    return launches64
+
+
+def phase_serving_flagship(dev, card):
+    """[24] (c) B = 64 problems of the flagship's width (M = 32, N = 30,
+    Nc = 5, box +-1) with one linear row each, on the structured route."""
+    M, N, Nc, xdim, udim = 32, 30, 5, 4, 2
+    f_fn = pmpc_tpu_torch.make_f_fx_fu_fn(dubins, device=dev)
+    Q, R, x0, box = flagship_arrays(M, N)
+    rng = np.random.default_rng(5)
+    nc, nf = Nc * udim, (N - Nc) * udim
+    n_full = nc + M * nf + M * N * xdim
+    g = np.zeros((1, n_full))
+    g[0, :udim] = 1.0
+    rhs = -1.0 - 0.2 * rng.random(B_FLAG_SERVE)  # sum(u_0) <= rhs: binds
+    ss = dict(Nc=Nc, dtype=np.float64, ipm_tol_exp=-10, ipm_iters=60)
+    probs = [dict(f_fx_fu_fn=f_fn, Q=Q, R=R, x0=x0 + 0.05 * rng.normal(size=x0.shape),
+                  u_l=-box, u_u=box, reg_x=1.0, reg_u=0.1, max_it=40, res_tol=1e-3,
+                  solver_settings=dict(ss, extra_cstrs=[(1, [], 0, g, np.zeros((1, 0)),
+                                                         np.array([rhs[i]]), np.zeros(n_full),
+                                                         np.zeros(0))]))
+             for i in range(B_FLAG_SERVE)]
+    out, dt, launches, shapes, stats = served_structured(probs, dev)
+    ok = [o for o in out if o[1] is not None]
+    U = np.stack([u for _, u, _ in ok])
+    conv = np.array([d["converged"] for _, _, d in ok])
+    cons = np.ptp(U[:, :, :Nc], axis=1).max()
+    row = (U[:, 0, 0].sum(-1) - rhs[:len(ok)]).max()
+    print(f"[24] (c) solve_problems(fused=True) B={B_FLAG_SERVE} M={M} N={N} Nc={Nc} box +-1 + one "
+          f"binding row, f64 (structured route {stats['structured']}): {dt * 1e3:.1f} ms a "
+          f"call, converged {conv.sum()} of {B_FLAG_SERVE}, {len(stats['t_step'])} SCP "
+          f"iterations, consensus spread {cons:.3e}, max row excess {row:.3e}; launches "
+          f"{launches} [{card}]")
+    require(len(ok) == B_FLAG_SERVE and np.abs(U).max() <= 1 + 1e-6,
+            "[24] (c) a problem failed or left the box")
+    require(cons <= 1e-6 and row <= 1e-6, f"[24] (c) consensus {cons} or row {row} violated")
+    require(shapes[("inv_cholesky_diag", B_FLAG_SERVE * M, 50, torch.float64)] > 0
+            and shapes[("inv_cholesky", B_FLAG_SERVE, 10, torch.float64)] > 0,
+            f"[24] (c) K1 not at (2048, 50, 50) or K2 not at (64, 10, 10): {launches}")
+    i = B_FLAG_SERVE // 4
+    _, U_s, _ = pmpc_tpu_torch.solve(**dict(probs[i], verbose=False, device=dev))
+    err = np.abs(U_s - U[i]).max()
+    print(f"    problem {i}: |U_batched - U_serial solve|_inf = {err:.3e} (tol 1e-6)")
+    require(err <= 1e-6, f"[24] (c) problem {i}: batched and serial differ by {err:.3e}")
+    return launches
+
+
+def phase_serving_sensitivity(dev, card):
+    """[24] (d) `sensitivity_L` at t = 0 on one flagship-instance particle
+    (N = 30, box +-1 under logbarrier alpha 100, f64) at the smoothed
+    problem's optimum: the card's gain against the CPU's."""
+    N, xdim, udim, alpha = 30, 4, 2, 100.0
+    Q, R, x0, box = flagship_arrays(1, N)
+    # the smoothed problem's SCP fixed point through `solve` (the dispatcher's
+    # logbarrier route) on the card, then Newton on the smoothed objective
+    # there until its gradient is at rounding level
+    f_fn = pmpc_tpu_torch.make_f_fx_fu_fn(dubins, device=dev)
+    t0 = time.perf_counter()
+    _, U_np, data = pmpc_tpu_torch.solve(
+        f_fn, Q[0], R[0], x0[0], u_l=-box[0], u_u=box[0], max_it=60, res_tol=1e-6,
+        verbose=False, device=dev, solver_settings=dict(smooth_cstr="logbarrier",
+                                                         smooth_alpha=alpha, dtype=np.float64))
+    t_solve = time.perf_counter() - t0
+    zeros = lambda *shape: torch.zeros(shape, dtype=torch.float64, device=dev)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    prob = sensitivity.SensProblem(x0=t(x0[0]), Q=t(Q[0]), R=t(R[0]), X_ref=zeros(N, xdim),
+                                   U_ref=zeros(N, udim), u_l=-t(box[0]), u_u=t(box[0]),
+                                   smooth_alpha=alpha)
+    obj = lambda U: sensitivity._smooth_objective(dubins, prob, U, prob.x0, zeros(N, xdim),
+                                                  zeros(N))
+    grad = torch.func.grad(obj)
+    U, r0, steps = t(U_np), None, 0
+    for steps in range(10):
+        g = grad(U).reshape(-1)
+        r0 = g.abs().max().item() if r0 is None else r0
+        if g.abs().max().item() < 1e-11:
+            break
+        H = torch.func.jacrev(grad)(U).reshape(N * udim, N * udim)
+        U = U - torch.linalg.solve(H, g).reshape(N, udim)
+    r = sensitivity.optimality_residual(dubins, prob, U).abs().max().item()
+    X = sensitivity.nonlinear_rollout(dubins, prob.x0, U)
+    cpu = lambda a: a.cpu() if isinstance(a, torch.Tensor) else a
+    L_cpu = sensitivity.sensitivity_L(dubins, sensitivity.SensProblem(*map(cpu, prob)),
+                                      U.cpu(), X.cpu())
+    sensitivity.sensitivity_L(dubins, prob, U, X)  # the warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    L = sensitivity.sensitivity_L(dubins, prob, U, X)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    err = (L.cpu() - L_cpu).abs().max().item()
+    print(f"[24] (d) solve() with logbarrier alpha {alpha:g} on one flagship particle (N={N}, "
+          f"box +-1, f64): {len(data['hist'])} SCP iterations, {t_solve * 1e3:.1f} ms, "
+          f"|grad|_inf {r0:.2e}; {steps} Newton steps on the card to {r:.2e}; "
+          f"sensitivity_L t=0: {dt * 1e3:.1f} ms on the card, |L_card - L_cpu|_inf = "
+          f"{err:.3e} (tol 1e-8), |L|_inf {L_cpu.abs().max().item():.3f} [{card}]")
+    require(r < 1e-10, f"[24] (d) the smoothed problem's optimum was not reached: {r:.2e}")
+    require(L.shape == (N, udim, xdim) and L.device.type == "cuda" and err <= 1e-8,
+            f"[24] (d) the card's gain differs from the CPU's by {err:.3e}")
+
+
 def main():
     card = phase_card()
     dev = torch.device("cuda", 0)
@@ -1576,13 +1910,27 @@ def main():
         phase_host_frontend(dev, card)
         print(f"    [23] took {time.perf_counter() - t0:.1f} s")
         phase_launched_shapes(dev)
+        t0, serving = time.perf_counter(), {}
+        for part, phase in (("fused", phase_serving_fused), ("cones", phase_serving_cones),
+                            ("flagship", phase_serving_flagship),
+                            ("sensitivity", phase_serving_sensitivity)):
+            t1 = time.perf_counter()
+            serving[part] = phase(dev, card)
+            print(f"    [24] {part} took {time.perf_counter() - t1:.1f} s")
+        print(f"    [24] took {time.perf_counter() - t0:.1f} s")
+        phase_launched_shapes(dev)
     # the state-box phase launches K2 twice per IPM iteration, once at each shape
-    wide, cone, cvar_shape, smooth_shape = kern["inv_cholesky"]["other_shapes"]
+    wide, cone, cvar_shape, smooth_shape, served_cone = kern["inv_cholesky"]["other_shapes"]
     wide["launches"] = launches["state_box"]["inv_cholesky"] // 2
     cone["launches"] = config3["inv_cholesky"]
     cvar_shape["launches"] = cvar["inv_cholesky"]
     # barrier_core's Newton step: one K2 at (32, 50, 50), one at (1, 10, 10)
     smooth_shape["launches"] = smooth["inv_cholesky"] // 2
+    # phase 24: K2 at (512, 40, 40) f64 on the structured route, K1 at
+    # (1000, 40, 40) on the fused route, per call, counted by shape
+    served_cone["launches"] = serving["cones"]
+    for entry, dt in zip(kern["inv_cholesky_diag"]["other_shapes"], ("float64", "float32")):
+        entry["launches"] = serving["fused"][dt]
     extras_shape, exp_shape = kern["inv_cholesky_big"]["other_shapes"]
     extras_shape["launches"] = extras["inv_cholesky_big"]
     exp_shape["launches"] = exp_extras["inv_cholesky_big"]

@@ -3,12 +3,18 @@
 The JAX package ``pmpc_tpu`` is the reference; this package never imports it
 or JAX. Ported so far: the fused batched SCP solver (`build_scp_solver`:
 the condensed and Riccati IPMs, whose factors run on a hand-written CUDA
-kernel, ``ops/chol_inv.py``), the composed cone programs
-(`conebatch.solve_problems_cone`), the smooth-constraint solvers, and the
-host frontend with the JAX package's API: ``solve`` / ``scp_solve``,
-``Problem``, ``aff_solve``, the per-iteration dispatcher
-(`solvers.dispatch.affine_solve_np`), ``accelerated_scp_solve`` and
-``tune_scp``.
+kernel, ``ops/chol_inv.py``), the batched cone programs
+(`conebatch.solve_problems_cone`: the composed route and the structured
+arrow-IPM route), the smooth-constraint solvers, the host frontend with the
+JAX package's API (``solve`` / ``scp_solve``, ``Problem``, ``aff_solve``,
+the per-iteration dispatcher `solvers.dispatch.affine_solve_np`,
+``accelerated_scp_solve``, ``tune_scp``), and batching and serving:
+``solve_problems`` (stacked, fused and cone routes), the ZMQ solve farm
+``remote`` (``python -m pmpc_tpu_torch.remote``), ``warmup`` (builds the
+kernel and runs a shape once), ``sensitivity`` (feedback gains by the
+implicit function theorem, `torch.func`) and ``native`` (the ctypes binding
+of ``native/``'s host library). ``solve_problems`` and ``remote`` load on
+first use.
 
 Quick start (a torch step function f(x, u) -> x_next; every solve runs on
 ``device``, the card when None)::
@@ -26,7 +32,7 @@ from .torch_scp import SCPData, build_scp_solver, make_scp_data  # noqa: F401
 
 __all__ = ["SCPData", "build_scp_solver", "make_scp_data", "solve", "scp_solve", "aff_solve",
            "solve_with_a_dict", "Problem", "make_f_fx_fu_fn", "linearize", "rollout",
-           "lqp_generate_problem_matrices", "SOLVE_KWS"]
+           "lqp_generate_problem_matrices", "SOLVE_KWS", "solve_problems", "remote"]
 
 # Keyword-compatible arguments of `solve` (the JAX package's SOLVE_KWS, whose
 # parity is pmpc/__init__.py:5-31), plus the placement of the solves
@@ -73,6 +79,12 @@ def __getattr__(name):
         from .tune import tune_scp
 
         return tune_scp
-    if name in ("solve_problems", "remote"):
-        raise AttributeError(f"pmpc_tpu_torch.{name} is not ported yet (ROADMAP §1.10)")
+    if name == "solve_problems":
+        from .batch import solve_problems
+
+        return solve_problems
+    if name == "remote":
+        import importlib
+
+        return importlib.import_module(".remote", __name__)
     raise AttributeError(f"module 'pmpc_tpu_torch' has no attribute {name!r}")

@@ -40,6 +40,7 @@ with ``ctypes``.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -58,9 +59,10 @@ MAX_N = 96  # the kernel's limit (the TPU kernels' `_fits_big`)
 # launches of each kernel (plain CPU calls are not counted)
 LAUNCHES = {"inv_cholesky": 0, "inv_cholesky_diag": 0,
             "inv_cholesky_big": 0, "inv_cholesky_diag_big": 0}
-# every (counter name, batch, n, dtype) launched since it was last cleared:
-# what a card-side check has to hold against the plain versions
-SHAPES = set()
+# every (counter name, batch, n, dtype) launched since it was last cleared,
+# with its launches: what a card-side check has to hold against the plain
+# versions, and the launches of each shape
+SHAPES = collections.Counter()
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc" / "chol_inv.cu"
@@ -180,7 +182,7 @@ def _on_cuda(A: torch.Tensor) -> bool:
 
 def _count(name: str, A: torch.Tensor) -> None:
     LAUNCHES[name] += 1
-    SHAPES.add((name, A.shape[0], A.shape[-1], A.dtype))
+    SHAPES[(name, A.shape[0], A.shape[-1], A.dtype)] += 1
 
 
 def inv_cholesky(A: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:

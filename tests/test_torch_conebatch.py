@@ -10,10 +10,15 @@ test_batched_cvar_respects_cones_and_consensus, an R1 instance; ROADMAP §3
 F5) and a B = 4 extras batch (`flagship.extras_batch` cut in depth: a
 keep-in cone on the states, an auxiliary slack with a cost, the terminal
 cross cost). Also the failure contract (a hard-failed problem gives
-``(None, None, None)`` alone), the signature mismatch, the signatures that
-are not ported (the structured route), the F5 instance seed 904 of
-tests/test_conebatch_soc.py through the composed route, and the problem
-converter. The exponential-cone signatures run the central-path barrier
+``(None, None, None)`` alone), the signature mismatch, the F5 instance seed
+904 of tests/test_conebatch_soc.py through the composed route, and the
+problem converter. The structured route (boxes, per-stage control cones
+and linear-only extras on the arrow IPM, no cone program built): linear
+rows against the JAX structured route (U to 1e-6, the failure contract
+too), stage cones given as SOC extras plus a linear row against the JAX
+composed route and the port's (1e-6; the JAX structured route raises on
+that signature, ROADMAP §3 R4), with a JAX-style ``f_fx_fu_fn`` in place of
+``dynamics``. The exponential-cone signatures run the central-path barrier
 method over the batch: tests/test_conebatch_exp.py's logbarrier batch (B = 3)
 against the JAX function and one problem solved alone, and a B = 2 batch of
 `flagship.extras_batch` with user ``e`` rows against the JAX function."""
@@ -23,6 +28,7 @@ import pytest
 import torch
 
 import pmpc_tpu
+import pmpc_tpu_torch
 from pmpc_tpu.conebatch import solve_problems_cone as jsolve
 from pmpc_tpu_torch.conebatch import solve_problems_cone as tsolve
 from pmpc_tpu_torch.convert import problem_from_numpy
@@ -112,13 +118,12 @@ def test_refusals():
     p2 = dict(p1, solver_settings=dict(p1["solver_settings"], extra_cstrs=[ec2]))
     with pytest.raises(ValueError, match="signature"):
         tsolve(_port([p1, p2]), device="cpu")
+    # the JAX callback carries a JAX step, which the port cannot run; a
+    # problem with neither the wrapped dynamics nor the key
     with pytest.raises(ValueError, match="dynamics"):
         tsolve([p1], device="cpu")
-    # boxes + linear extras + per-stage cones: the JAX structured route
-    st = dict(p1, solver_settings=dict(Nc=Nc, u_soc_r=np.full((M, N), 0.8),
-                                       extra_cstrs=[_extras_row(M, N, xdim, udim, Nc, 0.3)]))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1.10"):
-        tsolve(_port([st, st]), device="cpu")
+    with pytest.raises(ValueError, match="dynamics"):
+        tsolve([dict(p1, f_fx_fu_fn=lambda X, U: None)], device="cpu")
     # without a device the batch goes to the card, which is not here
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -225,3 +230,146 @@ def test_exp_rows_batch_matches_jax():
     out_t = tsolve(probs, device="cpu")
     _hold(out_t, jsolve(_jax(probs)))
     assert all(d["converged"] for _, _, d in out_t)
+
+
+# ---- the structured route: the arrow IPM over the batch ------------------------------
+
+def _no_cone_program(monkeypatch):
+    """Make any use of the composed cone program fail the test."""
+    from pmpc_tpu_torch import conebatch
+    from pmpc_tpu_torch.solvers import compose
+
+    def boom(*a, **k):
+        raise AssertionError("the structured signature built the composed cone program")
+
+    monkeypatch.setattr(compose, "composed_solve_batch_device", boom)
+    monkeypatch.setattr(conebatch, "composed_solve_batch_device", boom)
+
+
+def _wrapped(problems):
+    """The JAX-API dicts with the port's `make_f_fx_fu_fn` callback (the
+    dynamics comes from its ``__wrapped_dynamics__``)."""
+    f_fn = pmpc_tpu_torch.make_f_fx_fu_fn(dubins, device="cpu")
+    return [dict(p, f_fx_fu_fn=f_fn, solver_settings=dict(p["solver_settings"],
+                                                          dtype=np.float64))
+            for p in problems]
+
+
+def _struct_hold(out_t, out_j, tol):
+    for (X, U, d), (Xj, Uj, dj) in zip(out_t, out_j):
+        if dj is None:
+            assert (X, U, d) == (None, None, None)
+            continue
+        np.testing.assert_allclose(U, Uj, atol=tol, rtol=0)
+        np.testing.assert_allclose(X, Xj, atol=tol, rtol=0)
+        for key in ("iters", "converged", "ipm_failed", "batch_index"):
+            assert d[key] == dj[key], (key, d[key], dj[key])
+
+
+def test_structured_linear_rows_match_jax(monkeypatch):
+    """tests/test_conebatch.py::test_batched_extras_matches_serial's batch
+    (B = 5, per-problem rows) on the structured route of both packages
+    (green in JAX): U and X to 1e-6, equal counts; no cone program."""
+    M, N, xdim, udim, Nc = 3, 8, 4, 2, 3
+    probs = [dict(_mk_problem(i, M=M, N=N), solver_settings=dict(
+        Nc=Nc, extra_cstrs=[_extras_row(M, N, xdim, udim, Nc, 0.1 + 0.03 * i)]))
+        for i in range(5)]
+    _no_cone_program(monkeypatch)
+    stats = {}
+    out_t = tsolve(_wrapped(probs), device="cpu", stats=stats)
+    _struct_hold(out_t, jsolve(probs), 1e-6)
+    assert stats["structured"] and stats["scp_iters"].max() == out_t[0][2]["iters"]
+    for i, (X, U, d) in enumerate(out_t):
+        assert d["converged"] and U[0, 0].sum() <= 0.1 + 0.03 * i + 1e-5
+        assert np.ptp(U[:, :Nc], axis=0).max() < 1e-9  # consensus
+    # ipm_tau reaches the port's IPM (the JAX route drops it)
+    tau = {}
+    short = [dict(p, max_it=2) for p in _wrapped(probs)]
+    tsolve([dict(p, solver_settings=dict(p["solver_settings"], ipm_tau=0.5)) for p in short],
+           device="cpu", stats=tau)
+    assert (tau["ipm_iters"] > stats["ipm_iters"][:2]).all()
+
+
+def test_structured_failure_is_isolated_per_problem(monkeypatch):
+    """The structured twin of test_failure_is_isolated_per_problem (the JAX
+    test's own route): problem 2's row is infeasible under the box."""
+    M, N, xdim, udim, Nc = 2, 6, 4, 2, 2
+    probs = [dict(_mk_problem(20 + i, M=M, N=N), solver_settings=dict(
+        Nc=Nc, extra_cstrs=[_extras_row(M, N, xdim, udim, Nc, 0.3 if i != 2 else -50.0)]))
+        for i in range(4)]
+    _no_cone_program(monkeypatch)
+    out_t = tsolve(_wrapped(probs), device="cpu")
+    _struct_hold(out_t, jsolve(probs), 1e-6)
+    assert out_t[2] == (None, None, None)
+    assert all(out_t[i][2]["converged"] for i in (0, 1, 3))
+
+
+def _stage_cones(M, N, Nc, r, rhs, xdim=4, udim=2):
+    """||u_j|| <= r on every stage as SOC extras over the full consensus
+    layout (rows [0; -u_j] against [r; 0], what `extras.split_stage_u_cones`
+    recognizes) plus the row sum(u_0) <= rhs."""
+    nc, nf = Nc * udim, (N - Nc) * udim
+    n_full = nc + M * nf + M * N * xdim
+    starts = [j * udim for j in range(Nc)] + [nc + i * nf + k * udim
+                                               for i in range(M) for k in range(N - Nc)]
+    G = np.zeros((len(starts), udim + 1, n_full))
+    for c, s0 in enumerate(starts):
+        G[c, 1:, s0:s0 + udim] = -np.eye(udim)
+    h = np.zeros((len(starts), udim + 1))
+    h[:, 0] = r
+    soc = (0, [udim + 1] * len(starts), 0, G.reshape(-1, n_full),
+           np.zeros((G.size // n_full, 0)), h.reshape(-1), np.zeros(n_full), np.zeros(0))
+    return [soc, _extras_row(M, N, xdim, udim, Nc, rhs)]
+
+
+def test_structured_stage_cones_match_both_composed_routes(monkeypatch):
+    """Per-stage control cones given as SOC extras plus a linear row, B = 3,
+    tight solves: the port's structured route against the JAX composed
+    route and the port's composed route (``extras_structured=False``), U to
+    1e-6 (the two programs differ in their IPMs' regularization: ~2e-7
+    here); cones and rows held; no cone program on the structured route."""
+    M, N, Nc, r = 2, 6, 2, 0.8
+    probs = [dict(_mk_problem(40 + i, M=M, N=N), res_tol=1e-8, max_it=40,
+                  solver_settings=dict(Nc=Nc, ipm_tol_exp=-10, ipm_iters=100,
+                                       extra_cstrs=_stage_cones(M, N, Nc, r, 0.1 + 0.05 * i)))
+             for i in range(3)]
+    composed = [dict(p, solver_settings=dict(p["solver_settings"], extras_structured=False))
+                for p in probs]
+    out_j = jsolve(composed)
+    out_c = tsolve(_port(composed), device="cpu")
+    _hold(out_c, out_j)
+    with monkeypatch.context() as m:
+        _no_cone_program(m)
+        stats = {}
+        out_s = tsolve(_wrapped(probs), device="cpu", stats=stats)
+    assert stats["structured"]
+    for i, ((X, U, d), (_, Uc, dc), (_, Uj, _)) in enumerate(zip(out_s, out_c, out_j)):
+        assert d["converged"] and dc["converged"]
+        np.testing.assert_allclose(U, Uj, atol=1e-6, rtol=0)
+        np.testing.assert_allclose(U, Uc, atol=1e-6, rtol=0)
+        assert np.linalg.norm(U, axis=-1).max() <= r + 1e-6
+        assert U[0, 0].sum() <= 0.1 + 0.05 * i + 1e-6
+        assert len(stats["ipm_iters"]) == d["iters"]
+
+
+def test_step_is_checked_on_the_route_device_and_dtype(monkeypatch):
+    """The dynamics check calls the step once where the route runs it: on
+    the batch's device and in its working dtype. A step that closes over
+    float32 tensors serves an f32 structured batch (a check in float64 on
+    the CPU refused it, as it refused a step closing over CUDA tensors)."""
+    M, N, xdim, udim, Nc = 2, 6, 4, 2, 2
+    A = torch.eye(xdim) + 0.1 * torch.diag(torch.ones(xdim - 1), 1)
+    Bm = 0.1 * torch.ones(xdim, udim)
+    step = lambda x, u: A @ x + Bm @ u  # noqa: E731 (float32 constants)
+    probs = [dict({k: v for k, v in _mk_problem(60 + i, M=M, N=N).items() if k != "f_fx_fu_fn"},
+                  dynamics=step, solver_settings=dict(
+                      Nc=Nc, dtype=np.float32,
+                      extra_cstrs=[_extras_row(M, N, xdim, udim, Nc, 0.3)]))
+             for i in range(2)]
+    _no_cone_program(monkeypatch)
+    stats = {}
+    out = tsolve(probs, device="cpu", stats=stats)
+    assert stats["structured"]
+    for X, U, d in out:
+        assert U.dtype == np.float32 and np.isfinite(U).all()
+        assert np.abs(U).max() <= 1 + 1e-5 and U[0, 0].sum() <= 0.3 + 1e-4

@@ -11,8 +11,9 @@ stays f32;
 (c) `accelerated_scp_solve` and `tune_scp` against the JAX package's, both
 loops on the port's subproblem solver (tests/test_torch_dispatch.py holds
 it against the JAX one): U to 1e-10 with equal SCP and IPM iteration
-counts; the `experimental` shim; the package exports, SOLVE_KWS with
-``device``, and ``device=None`` without a card."""
+counts; the `experimental` shim; the package exports (``solve_problems``
+and ``remote`` loaded on first use), SOLVE_KWS with ``device``, and
+``device=None`` without a card."""
 
 import numpy as np
 import pytest
@@ -208,8 +209,13 @@ def test_experimental_shim_and_package_exports(monkeypatch):
                  "make_f_fx_fu_fn", "linearize", "rollout", "lqp_generate_problem_matrices",
                  "build_scp_solver", "accelerated_scp_solve", "tune_scp"):
         assert callable(getattr(pmpc_tpu_torch, name))
-    with pytest.raises(AttributeError, match="ROADMAP §1.10"):
-        pmpc_tpu_torch.solve_problems
+    # batching and serving resolve on first use, as in the JAX package
+    from pmpc_tpu_torch.batch import solve_problems
+
+    assert pmpc_tpu_torch.solve_problems is solve_problems
+    assert pmpc_tpu_torch.remote.SUPPORTED_METHODS["solve_batch"] is solve_problems
+    with pytest.raises(AttributeError, match="no attribute 'no_such_entry_point'"):
+        pmpc_tpu_torch.no_such_entry_point
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pmpc_tpu_torch.solve(fn, Q, R, x0, max_it=1)

@@ -551,7 +551,9 @@ def test_port_imports_no_jax():
             "pmpc_tpu_torch.solvers.second_order", "pmpc_tpu_torch.solvers.dispatch",
             "pmpc_tpu_torch.scp", "pmpc_tpu_torch.problem", "pmpc_tpu_torch.canonical",
             "pmpc_tpu_torch.filters", "pmpc_tpu_torch.accelerated", "pmpc_tpu_torch.tune",
-            "pmpc_tpu_torch.experimental"} <= set(mods)
+            "pmpc_tpu_torch.experimental", "pmpc_tpu_torch.batch", "pmpc_tpu_torch.remote",
+            "pmpc_tpu_torch.warmup", "pmpc_tpu_torch.sensitivity",
+            "pmpc_tpu_torch.native", "pmpc_tpu_torch.ipm_crawl"} <= set(mods)
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
