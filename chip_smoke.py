@@ -150,6 +150,24 @@ then phase 9 once more for the shapes phases 19-22 launched;
    gain against the CPU's (1e-8), ms a call. Then phase 9 once more, and
    phase 24 prints its seconds. The farm (`remote`) is not driven here: it
    needs pyzmq, zstandard and cloudpickle.
+25. the last modules of the port: (a) lane refill, `stream.solve_stream`:
+   512 single-particle Dubins problems at config 3's width (N=20, box +-1,
+   x0 = ones + s N(0, 1), s cycling over 0.05-0.4), f64, res_tol 1e-5, on 64
+   lanes 4 SCP iterations a chunk (K1 alone at (64, 40, 40)); the first 64
+   run to their batch maximum through the same solver (U to 1e-7, equal
+   counts); all 512 as one fused scenario (`solve_problems(fused=True)`,
+   K1 at (512, 40, 40)); ms, the lanes' idle share and host reads of each
+   mode, |U_fused - U_stream| reported; (b) relin_stale 0 against 1 on the
+   headline program (f32, B=64): converged_frac, SCP iterations, ms a call;
+   (c) method="priccati" against "riccati", unbounded, f64, at N=280 (M=1)
+   and at the headline width (B=64): U to 1e-8, ms and device kernels (the
+   profiler) an SCP iteration, no hand kernel; (d) `parallel.
+   make_sharded_solver`: the headline program at B=8 on an NCCL group of
+   world size 1 against the plain solver, then two ranks spawned on this
+   card over gloo (`parallel.check`), meshes 1 x 2 and 2 x 1, f64, against
+   the unsharded solver (U to 1e-7, equal counts), each rank's K1 / K2
+   launches by shape (K1 at (128, 50, 50) and K2 at (8, 10, 10) on the
+   particle mesh). Then phase 9 once more; phase 25 prints its seconds.
 Then one JSON line for the kernels and, last, one JSON line for the run.
 Every solver phase sets
 the launch counts to 0 before its timed call and reads them after it.
@@ -209,7 +227,8 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 OTHER_SHAPES = ((True, 8, 50), (False, 1, 10), (False, 32, 10), (False, 2048, 50),
                 (False, 512, 40), (False, 128, 50), (False, 4, 10), (False, 64, 45),
                 (False, 64, 71), (False, 64, 73), (True, 32, 50), (False, 32, 50),
-                (True, 1000, 40), (False, 512, 1), (False, 64, 1))
+                (True, 1000, 40), (False, 512, 1), (False, 64, 1), (True, 64, 40),
+                (True, 128, 50), (False, 8, 10))
 K2_WIDE = (2048, 50)  # K2's second timed shape, from the state-box phase
 K2_CONE = (512, 40)  # K2's third timed shape: config 3's cone Newton blocks
 K2_CVAR = (64, 45)  # K2 in f64: the CVaR program's Newton matrix (phase 17)
@@ -217,6 +236,9 @@ K4_EXTRAS = (64, 71)  # K4 in f64: the extras program's (phase 18)
 K4_EXP = (64, 73)  # K4 in f64: the exp-cone extras program's barrier Newton matrix (phase 20)
 K2_SMOOTH = (32, 50)  # K2: the smooth Newton's per-particle blocks (phase 21)
 K1_SERVE = (1000, 40)  # K1: the reference's 1000-problem GPU batch, fused (phase 24 (a))
+K1_STREAM = (64, 40)  # K1 in f64: the lane-refill stream's 64 lanes (phase 25 (a))
+K1_SHARD = (128, 50)  # K1 in f64: one rank's particle blocks, the 1 x 2 mesh (phase 25 (d))
+K2_SHARD = (8, 10)  # K2 in f64: one rank's consensus Schur blocks after the all-reduce (25 (d))
 B_CONFIG3 = 512
 B_CONE, M_CVAR, K_CVAR, B_CHECK = 64, 4, 3, 4  # phases 17-20
 ALPHA_LOG, ALPHA_SQ = 50.0, 8.0  # phases 19 and 21-22: logbarrier and squareplus alpha
@@ -346,7 +368,8 @@ def phase_kernels(dev, card):
     for diag, B, n in OTHER_SHAPES:
         for dtype in (torch.float32, torch.float64):
             err = check(diag, *spd_inputs(B, n, dtype, dev))
-            if (B, n) in (K2_WIDE, K2_CONE, K2_CVAR, K4_EXTRAS, K4_EXP, K2_SMOOTH, K1_SERVE):
+            if (B, n) in (K2_WIDE, K2_CONE, K2_CVAR, K4_EXTRAS, K4_EXP, K2_SMOOTH, K1_SERVE,
+                          K1_STREAM, K1_SHARD, K2_SHARD):
                 other[(B, n, dtype)] = {"shape": [B, n, n], "dtype": str(dtype)[6:],
                                         "max_abs_err": err}
     for n in (1, 7, 8, 9, 33, 63, 64, 65, 72, 95, 96):
@@ -401,9 +424,12 @@ def phase_kernels(dev, card):
     results["inv_cholesky"]["other_shapes"] = [other[K2_WIDE + (f32,)], other[K2_CONE + (f32,)],
                                                other[K2_CVAR + (f64,)],
                                                other[K2_SMOOTH + (f32,)],
-                                               other[K2_CONE + (f64,)]]
+                                               other[K2_CONE + (f64,)],
+                                               other[K2_SHARD + (f64,)]]
     results["inv_cholesky_diag"]["other_shapes"] = [other[K1_SERVE + (f64,)],
-                                                    other[K1_SERVE + (f32,)]]
+                                                    other[K1_SERVE + (f32,)],
+                                                    other[K1_STREAM + (f64,)],
+                                                    other[K1_SHARD + (f64,)]]
     results["inv_cholesky_big"]["other_shapes"] = [other[K4_EXTRAS + (f64,)],
                                                    other[K4_EXP + (f64,)]]
     timed = [(name, diag, B, n, f32, results[name])
@@ -417,6 +443,9 @@ def phase_kernels(dev, card):
     timed.append(("inv_cholesky_big", False, *K4_EXP, f64, other[K4_EXP + (f64,)]))
     timed += [("inv_cholesky_diag", True, *K1_SERVE, dt, other[K1_SERVE + (dt,)])
               for dt in (f64, f32)]
+    timed += [("inv_cholesky_diag", True, *K1_STREAM, f64, other[K1_STREAM + (f64,)]),
+              ("inv_cholesky_diag", True, *K1_SHARD, f64, other[K1_SHARD + (f64,)]),
+              ("inv_cholesky", False, *K2_SHARD, f64, other[K2_SHARD + (f64,)])]
     for name, diag, B, n, dtype, r in timed:
         A, w = spd_inputs(B, n, dtype, dev)
         fns = {"plain": lambda: run(diag, A, w, plain=True),
@@ -1868,6 +1897,251 @@ def phase_serving_sensitivity(dev, card):
             f"[24] (d) the card's gain differs from the CPU's by {err:.3e}")
 
 
+S_STREAM, B_STREAM, N_STREAM, CHUNK_STREAM = 512, 64, 20, 4  # phase 25 (a)
+IT_STREAM, TOL_STREAM = 200, 1e-5  # (a): a problem's budget and res_tol
+STREAM_SPREAD = (0.05, 0.1, 0.2, 0.4)  # (a): x0 noise scales, cycled: mixed difficulty
+N_PRIC = 280  # (c): the long horizon, M = 1
+B_SHARD = 8  # (d): the flagship's batch on the meshes
+
+
+def stream_x0(S, seed=25):
+    """(a): S single-car x0 = ones + s N(0, 1), s cycling over STREAM_SPREAD."""
+    scale = np.array(STREAM_SPREAD)[np.arange(S) % len(STREAM_SPREAD)]
+    return np.ones((S, 4)) + scale[:, None] * np.random.default_rng(seed).normal(size=(S, 4))
+
+
+def phase_stream(dev, card):
+    """[25] (a) lane refill: S_STREAM single-particle Dubins problems at
+    config 3's width (N=20, box +-1) through `stream.solve_stream` on
+    B_STREAM lanes, f64, against the same solver run to the batch maximum:
+    all of them as one S_STREAM-lane batch (every problem held to 1e-7 with
+    its own count: a lane freezes at its count, so it computes what its
+    problem computes alone), and as S_STREAM / B_STREAM batches of B_STREAM
+    lanes, each timed (and held the same way); then all of them as one fused
+    scenario (`solve_problems(fused=True)`, every problem runs to the
+    slowest; reported). Returns the stream call's K1 launches at
+    (B_STREAM, 40, 40)."""
+    from pmpc_tpu_torch.flagship import _instance
+    from pmpc_tpu_torch.particles import HOST_READS
+    from pmpc_tpu_torch.stream import _stack, solve_stream
+
+    f64 = torch.float64
+    solver = pmpc_tpu_torch.build_scp_solver(
+        dubins, N=N_STREAM, xdim=4, udim=2, M=1, Nc=0, max_it=IT_STREAM, res_tol=TOL_STREAM,
+        has_u_bounds=True)
+    x0 = stream_x0(S_STREAM)
+    stream = [_instance(x0[i:i + 1], N_STREAM, 2, f64, dev) for i in range(S_STREAM)]
+    pool = _stack(stream)
+    batches = [_stack(stream[i:i + B_STREAM]) for i in range(0, S_STREAM, B_STREAM)]
+    # short calls of the same shapes first
+    for d in (batches[0], pool):
+        solver.rebuild(max_it=2)(d)
+    torch.cuda.synchronize()
+
+    def run_to_max(d):
+        r0, t0 = HOST_READS[0], time.perf_counter()
+        _, U, info = solver(d)
+        torch.cuda.synchronize()
+        return (U[:, 0].cpu().numpy(), info["iters"].cpu().numpy(),
+                time.perf_counter() - t0, HOST_READS[0] - r0 + 1)
+
+    st = {}
+    chol_inv.reset_launch_counts()
+    before = chol_inv.SHAPES.copy()
+    t0 = time.perf_counter()
+    out = solve_stream(solver, stream, B=B_STREAM, chunk_it=CHUNK_STREAM, max_it=IT_STREAM,
+                       stats=st)
+    torch.cuda.synchronize()
+    t_stream, launches = time.perf_counter() - t0, dict(chol_inv.LAUNCHES)
+    k1 = (chol_inv.SHAPES - before)[("inv_cholesky_diag", B_STREAM, 2 * N_STREAM, f64)]
+    its = np.array([o[2]["iters"] for o in out])
+    conv = np.array([o[2]["converged"] for o in out])
+    U_s = np.stack([o[1][0] for o in out])
+    U_w, it_w, t_wide, reads_wide = run_to_max(pool)
+    per = [run_to_max(d) for d in batches]
+    U_b, it_b = np.concatenate([r[0] for r in per]), np.concatenate([r[1] for r in per])
+    t_batches, reads_batches = sum(r[2] for r in per), sum(r[3] for r in per)
+    err_w, same_w = float(np.abs(U_w - U_s).max()), bool((it_w == its).all())
+    err_b, same_b = float(np.abs(U_b - U_s).max()), bool((it_b == its).all())
+    # the lanes' idle share: lane-iterations that advance no unfinished problem
+    idle_stream = 1.0 - its.sum() / st["lane_slots"]
+    per_batch = its.reshape(-1, B_STREAM).max(-1)
+    idle_batches = 1.0 - its.sum() / (B_STREAM * per_batch.sum())
+    idle_wide = 1.0 - its.sum() / (S_STREAM * its.max())
+    print(f"[25] (a) solve_stream S={S_STREAM} B={B_STREAM} chunk_it={CHUNK_STREAM} N={N_STREAM} "
+          f"box +-1 f64 res_tol {TOL_STREAM:g}: {t_stream * 1e3:.1f} ms a call, converged "
+          f"{conv.sum()} of {S_STREAM}, SCP iterations per problem min {its.min()} median "
+          f"{float(np.median(its))} max {its.max()} (sum {its.sum()}), {st['rounds']} chunks, "
+          f"lanes idle {idle_stream:.4f}, host reads {st['host_reads']}; launches {launches} "
+          f"[{card}]")
+    print(f"    run to the batch maximum, one batch of {S_STREAM}: {t_wide * 1e3:.1f} ms, "
+          f"lanes idle {idle_wide:.4f}, {reads_wide} host reads, |U_batch - U_stream|_inf = "
+          f"{err_w:.3e} (tol 1e-7), counts equal {same_w}")
+    print(f"    run to the batch maximum, {S_STREAM // B_STREAM} batches of {B_STREAM} "
+          f"(batch maxima {per_batch.tolist()}): {t_batches * 1e3:.1f} ms in all (each "
+          f"{[round(r[2] * 1e3, 1) for r in per]}), lanes idle {idle_batches:.4f}, "
+          f"{reads_batches} host reads, |U_batch - U_stream|_inf = {err_b:.3e} (tol 1e-7), "
+          f"counts equal {same_b}")
+    require(conv.mean() >= 0.95 and np.isfinite(U_s).all() and np.abs(U_s).max() <= 1 + 1e-6,
+            f"[25] (a) the stream converged {conv.sum()} of {S_STREAM} or left the box")
+    require(err_w <= 1e-7 and same_w,
+            f"[25] (a) a stream problem differs from its lane of the {S_STREAM}-lane batch: "
+            f"{err_w:.3e}, counts equal {same_w}")
+    require(err_b <= 1e-7 and same_b,
+            f"[25] (a) a stream problem differs from its lane of the {B_STREAM}-lane batches: "
+            f"{err_b:.3e}, counts equal {same_b}")
+    require(only_launched(launches, ("inv_cholesky_diag",)) and k1 > 0,
+            f"[25] (a) expected K1 alone at ({B_STREAM}, 40, 40): {launches}")
+    # the same problems as one fused scenario, each running to the slowest
+    f_fn = pmpc_tpu_torch.make_f_fx_fu_fn(dubins, device=dev)
+    Q, R = np.tile(np.eye(4), (N_STREAM, 1, 1)), np.tile(1e-2 * np.eye(2), (N_STREAM, 1, 1))
+    box = np.ones((N_STREAM, 2))
+    probs = [dict(f_fx_fu_fn=f_fn, Q=Q, R=R, x0=x0[i], u_l=-box, u_u=box, reg_x=1.0,
+                  reg_u=0.1, max_it=IT_STREAM, res_tol=TOL_STREAM,
+                  solver_settings=dict(dtype=np.float64)) for i in range(S_STREAM)]
+    pmpc_tpu_torch.solve_problems([dict(p, max_it=1) for p in probs], fused=True, device=dev)
+    r0 = HOST_READS[0]
+    out_f, t_fused, launches_f, _ = serve_call(probs, dev, fused=True)
+    reads_fused = HOST_READS[0] - r0 + 1
+    U_f, conv_f, _ = stack_out(out_f)
+    it_f = out_f[0][2]["iters"]
+    idle_fused = 1.0 - its.sum() / (S_STREAM * it_f)
+    diff = np.abs(U_f - U_s).max(axis=(1, 2))
+    print(f"    solve_problems(fused=True), the {S_STREAM} problems as one scenario: "
+          f"{t_fused * 1e3:.1f} ms a call, {it_f} SCP iterations, converged {conv_f.sum()}, "
+          f"lanes idle {idle_fused:.4f} (against each problem's own count), host reads "
+          f"{reads_fused}; |U_fused - U_stream|_inf = {diff.max():.3e} (problems within 1e-7: "
+          f"{int((diff <= 1e-7).sum())}, within 1e-4: {int((diff <= 1e-4).sum())}: the fused "
+          f"IPM's steps and stop are the scenario's, so a slowly converging problem stops "
+          f"elsewhere within the SCP tolerance); launches {launches_f} [{card}]")
+    print(f"    lane refill against run-to-max: stream {t_stream * 1e3:.1f} ms, one batch of "
+          f"{S_STREAM} {t_wide * 1e3:.1f} ms, batches of {B_STREAM} {t_batches * 1e3:.1f} ms, "
+          f"fused {t_fused * 1e3:.1f} ms")
+    require(conv_f.mean() >= 0.95 and np.isfinite(U_f).all(),
+            f"[25] (a) the fused call converged {conv_f.sum()} of {S_STREAM}")
+    return k1
+
+
+def phase_relin_stale(dev, card):
+    """[25] (b) relin_stale 0 against 1 on the headline program (f32, B=64),
+    relin_stale=1 at the headline's 25 sub-steps and at the 27 that
+    benchmarks/ab_stale.py gives it."""
+    for rs, max_it in ((0, 25), (1, 25), (1, 27)):
+        kw = dict(HEADLINE_KW, max_it=max_it)
+        solver, data = flagship(dtype=torch.float32, device=dev, relin_stale=rs, **kw)
+        X, U, info, dt, launches = timed_call(solver, stack_varied(data, B_FLAGSHIP))
+        report("25", f"(b) flagship B={B_FLAGSHIP} f32 AA relin_stale={rs} max_it={max_it}",
+               info, dt, launches, card)
+        require(torch.isfinite(U).all() and U.abs().max() <= 1 + 1e-4
+                and launches["inv_cholesky_diag"] > 0,
+                f"[25] (b) relin_stale={rs}: output not finite or off the box, or no K1")
+
+
+def device_kernels(fn):
+    """The kernels one call of ``fn`` runs on the card (torch.profiler, the
+    device's activity only)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def phase_priccati(dev, card):
+    """[25] (c) the associative-scan Riccati route against the sequential one,
+    unbounded, f64: the long horizon (M=1, N=N_PRIC) and the headline width
+    (B=64, M=32, N=30, Nc=5). Each runs exactly 1 and 3 SCP iterations (the
+    tolerance is out of reach): ms and kernels per SCP iteration from their
+    difference."""
+    from pmpc_tpu_torch.flagship import _instance
+
+    f64 = torch.float64
+    for what, M, N, Nc, B in ((f"M=1 N={N_PRIC}", 1, N_PRIC, 0, 1),
+                              ("flagship width M=32 N=30 Nc=5", 32, 30, 5, B_FLAGSHIP)):
+        data = stack_varied(_instance(_x0_seed0(M, 4, f64), N, 2, f64, dev, bounded=False), B)
+        res, U = {}, {}
+        for method in ("riccati", "priccati"):
+            per = {}
+            for it in (1, 3):
+                solver = pmpc_tpu_torch.build_scp_solver(
+                    dubins, N=N, xdim=4, udim=2, M=M, Nc=Nc, max_it=it, res_tol=0.0,
+                    method=method)
+                _, U[method], _, dt, launches = timed_call(solver, data)
+                per[it] = (dt, device_kernels(lambda: solver(data)))
+                no_kernel("25", launches)
+            ms = (per[3][0] - per[1][0]) / 2 * 1e3
+            kern = (per[3][1] - per[1][1]) / 2
+            res[method] = (ms, kern)
+        err = float((U["priccati"] - U["riccati"]).abs().max())
+        print(f"[25] (c) unbounded {what} B={B} f64, 3 SCP iterations: |U_priccati - "
+              f"U_riccati|_inf = {err:.3e} (tol 1e-8); a SCP iteration: riccati "
+              f"{res['riccati'][0]:.2f} ms, {res['riccati'][1]:.0f} kernels; priccati "
+              f"{res['priccati'][0]:.2f} ms, {res['priccati'][1]:.0f} kernels [{card}]")
+        require(err <= 1e-8 and torch.isfinite(U["priccati"]).all(),
+                f"[25] (c) {what}: priccati and riccati differ by {err:.3e}")
+
+
+def phase_sharded(dev, card):
+    """[25] (d) `parallel.make_sharded_solver`: the headline program at B=8 on
+    an NCCL group of world size 1 against the plain solver (f32), then two
+    ranks spawned on this card over gloo, meshes 1 x 2 and 2 x 1 built from
+    default arguments (each rank checks that its shard lies on the card),
+    f64, against the unsharded solver (`parallel.check`). Returns the ranks'
+    launches by shape."""
+    import torch.distributed as dist
+
+    from pmpc_tpu_torch.parallel import check, make_mesh, make_sharded_solver, \
+        shard_batched_data
+    from pmpc_tpu_torch.parallel.distributed import init_distributed
+
+    init_distributed(f"tcp://localhost:{check._free_port()}", 1, 0, backend="nccl")
+    try:
+        mesh = make_mesh(1, 1)
+        solver, data = flagship(dtype=torch.float32, device=dev, **HEADLINE_KW)
+        batch = stack_varied(data, B_SHARD)
+        fn = make_sharded_solver(solver, mesh)
+        _, U_p, info_p = solver(batch)
+        _, U, info, dt, launches = timed_call(fn, shard_batched_data(batch, mesh))
+        err = float((U - U_p).abs().max())
+        print(f"[25] (d) make_sharded_solver on NCCL, world size 1, mesh 1 x 1: flagship "
+              f"B={B_SHARD} f32 {dt * 1e3:.1f} ms a call, |U - U_plain|_inf = {err:.3e}, "
+              f"counts equal {bool((info['iters'] == info_p['iters']).all())}; launches "
+              f"{launches} [{card}]")
+        require(err <= 1e-7 and bool((info["iters"] == info_p["iters"]).all())
+                and launches["inv_cholesky_diag"] > 0,
+                f"[25] (d) NCCL world 1: the sharded solver differs by {err:.3e}")
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    rep, logs = check.run(2, "gloo", "1x2,2x1", "cuda", B=B_SHARD, tol=1e-7, timeout=400)
+    if rep is None:
+        print("\n".join(f"--- rank {r} ---\n{log[-3000:]}" for r, log in enumerate(logs)))
+    meshes = {name: m["flagship"] for name, m in (rep or {}).get("meshes", {}).items()}
+    require(rep is not None and all(m["ok"] for m in meshes.values()),
+            "[25] (d) two gloo ranks on one card: a mesh disagrees with the unsharded solver")
+    shapes = {}
+    for name, m in meshes.items():
+        print(f"[25] (d) 2 ranks on cuda:0 over gloo, mesh {name}: flagship B={B_SHARD} f64, "
+              f"M_local {m['M_local']}, |(U, X) - unsharded|_inf = {m['max_abs_err']:.3e} "
+              f"(tol 1e-7), counts equal {m['iters_equal']}, converged {m['converged']} of "
+              f"{B_SHARD}, ms a call per rank {[round(v, 1) for v in m['ms_per_rank']]}, "
+              f"launches per rank {m['launches_per_rank']} [{card}]")
+        shapes[name] = m["launches_per_rank"][0]
+    print(f"    [25] (d) the spawned ranks took {time.perf_counter() - t0:.1f} s")
+    r0 = shapes.get("1x2", {})
+    require(r0.get(shape_key("inv_cholesky_diag", K1_SHARD), 0) > 0
+            and r0.get(shape_key("inv_cholesky", K2_SHARD), 0) > 0,
+            f"[25] (d) rank 0 of the 1 x 2 mesh did not launch K1 at {K1_SHARD} and K2 at "
+            f"{K2_SHARD}: {r0}")
+    return shapes
+
+
+def shape_key(name, shape, dtype="float64"):
+    """`parallel.check`'s key of a launch shape."""
+    B, n = shape
+    return f"{name} ({B}, {n}, {n}) {dtype}"
+
+
 def main():
     card = phase_card()
     dev = torch.device("cuda", 0)
@@ -1919,8 +2193,17 @@ def main():
             print(f"    [24] {part} took {time.perf_counter() - t1:.1f} s")
         print(f"    [24] took {time.perf_counter() - t0:.1f} s")
         phase_launched_shapes(dev)
+        t0 = time.perf_counter()
+        for part, phase in (("stream", phase_stream), ("relin_stale", phase_relin_stale),
+                            ("priccati", phase_priccati), ("sharded", phase_sharded)):
+            t1 = time.perf_counter()
+            serving[part] = phase(dev, card)
+            print(f"    [25] {part} took {time.perf_counter() - t1:.1f} s")
+        print(f"    [25] took {time.perf_counter() - t0:.1f} s")
+        phase_launched_shapes(dev)
     # the state-box phase launches K2 twice per IPM iteration, once at each shape
-    wide, cone, cvar_shape, smooth_shape, served_cone = kern["inv_cholesky"]["other_shapes"]
+    wide, cone, cvar_shape, smooth_shape, served_cone, shard_k2 = \
+        kern["inv_cholesky"]["other_shapes"]
     wide["launches"] = launches["state_box"]["inv_cholesky"] // 2
     cone["launches"] = config3["inv_cholesky"]
     cvar_shape["launches"] = cvar["inv_cholesky"]
@@ -1929,8 +2212,15 @@ def main():
     # phase 24: K2 at (512, 40, 40) f64 on the structured route, K1 at
     # (1000, 40, 40) on the fused route, per call, counted by shape
     served_cone["launches"] = serving["cones"]
-    for entry, dt in zip(kern["inv_cholesky_diag"]["other_shapes"], ("float64", "float32")):
-        entry["launches"] = serving["fused"][dt]
+    serve64, serve32, stream_k1, shard_k1 = kern["inv_cholesky_diag"]["other_shapes"]
+    serve64["launches"], serve32["launches"] = serving["fused"]["float64"], \
+        serving["fused"]["float32"]
+    # phase 25: K1 at (64, 40, 40) f64 in the stream call; one rank's K1 at
+    # (128, 50, 50) and K2 at (8, 10, 10) f64 on the 1 x 2 mesh
+    stream_k1["launches"] = serving["stream"]
+    rank0 = serving["sharded"].get("1x2", {})
+    shard_k1["launches"] = rank0.get(shape_key("inv_cholesky_diag", K1_SHARD), 0)
+    shard_k2["launches"] = rank0.get(shape_key("inv_cholesky", K2_SHARD), 0)
     extras_shape, exp_shape = kern["inv_cholesky_big"]["other_shapes"]
     extras_shape["launches"] = extras["inv_cholesky_big"]
     exp_shape["launches"] = exp_extras["inv_cholesky_big"]

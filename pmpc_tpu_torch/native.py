@@ -3,10 +3,15 @@
 The port's own copy of ``pmpc_tpu/native.py`` (importing that module would
 import JAX through ``pmpc_tpu/__init__.py``). Role parity with the
 reference's native bridge (``PMPC.jl/pmpcjl/module.cpp`` flat f64 ABI +
-``pmpc/import_pmpcjl.py`` library loading): the library in ``native/`` is
-built on demand with ``make`` and loaded with ctypes; `load` returns None
-when no compiler is available, and callers keep their pure-Python paths.
-A host library: it has no device path.
+``pmpc/import_pmpcjl.py`` library loading): ``native/pmpc_native.cpp`` is
+compiled on demand by ``native/Makefile`` into the port's own
+build directory (``pmpc_tpu_torch/_build/native/``, never over
+``native/libpmpc_native.so``, which the JAX package's binding builds) and
+loaded with ctypes; `load` returns None when no compiler is available, and
+callers keep their pure-Python paths. Concurrent processes build under an
+``fcntl`` lock into a temporary name that is renamed into place, so no
+process loads a half-written library. A host library: it has no device
+path.
 
 Exports:
 - `build_canonical(...)`: native canonical consensus-QP assembly (the
@@ -19,8 +24,11 @@ Exports:
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
+import shutil
 import subprocess
+import tempfile
 from typing import Optional, Tuple
 
 import numpy as np
@@ -30,19 +38,43 @@ _TRIED = False
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                            "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libpmpc_native.so")
+_SRC = os.path.join(_NATIVE_DIR, "pmpc_native.cpp")
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build", "native")
+_LIB_PATH = os.path.join(_BUILD_DIR, "libpmpc_native.so")
 
 _f64p = np.ctypeslib.ndpointer(dtype=np.float64, flags="C_CONTIGUOUS")
 _i64p = ctypes.POINTER(ctypes.c_int64)
 
 
+def _stale() -> bool:
+    return (not os.path.exists(_LIB_PATH)
+            or os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC))
+
+
 def _build() -> bool:
+    """Compile the library when it is missing or older than its source, with
+    ``native/Makefile`` itself (its CXX and CXXFLAGS, environment overrides
+    included) run in a fresh directory under the build directory that
+    links to the source. The compile holds an exclusive lock and the
+    result is renamed into place: a process that finds the library finds it
+    whole."""
     try:
-        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                       capture_output=True, timeout=120)
-        return os.path.exists(_LIB_PATH)
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        with open(_LIB_PATH + ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if _stale():
+                tmp = tempfile.mkdtemp(dir=_BUILD_DIR)
+                try:
+                    os.symlink(_SRC, os.path.join(tmp, "pmpc_native.cpp"))
+                    subprocess.run(["make", "-s", "-C", tmp, "-f",
+                                    os.path.join(_NATIVE_DIR, "Makefile"), "libpmpc_native.so"],
+                                   check=True, capture_output=True, timeout=120)
+                    os.replace(os.path.join(tmp, "libpmpc_native.so"), _LIB_PATH)
+                finally:
+                    shutil.rmtree(tmp, ignore_errors=True)
     except (OSError, subprocess.SubprocessError):
-        return False
+        pass
+    return os.path.exists(_LIB_PATH)
 
 
 def load() -> Optional[ctypes.CDLL]:
@@ -51,10 +83,10 @@ def load() -> Optional[ctypes.CDLL]:
     if _LIB is not None or _TRIED:
         return _LIB
     _TRIED = True
-    # always run make: it is a no-op when the .so is current, and rebuilds a
-    # STALE library when the C++ source changed (a missing-only check once
-    # served a pre-fix binary to the whole test suite)
-    if not _build() and not os.path.exists(_LIB_PATH):
+    # always check the source's time: a STALE library is rebuilt when the C++
+    # source changed (a missing-only check once served a pre-fix binary to
+    # the whole test suite)
+    if not _build():
         return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)
@@ -100,7 +132,7 @@ def available() -> bool:
 def _require_lib() -> ctypes.CDLL:
     lib = load()
     if lib is None:
-        raise RuntimeError("native library unavailable (make / a C++ compiler missing?)")
+        raise RuntimeError("native library unavailable (a C++ compiler missing?)")
     return lib
 
 

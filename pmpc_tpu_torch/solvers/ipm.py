@@ -30,6 +30,12 @@ Python loop that runs while any lane is active; a lane that is not active
 keeps its state unchanged (``jax.vmap`` of ``lax.while_loop`` selects the
 same way), on top of the body's own freeze. The loop test costs one host
 sync per iteration.
+
+Under a particle group (`particles.particle_scope`) the (B, M, ...) arrays
+hold this rank's particles: the flat constraint vector's consensus rows are
+the same on every rank and its particle rows the rank's own, and every
+reduction over them (counts, mu, step lengths, residual norms, the
+non-finite test, the loop test) is completed over the group.
 """
 
 from __future__ import annotations
@@ -40,8 +46,10 @@ import numpy as np
 import torch
 
 from ..ops.linalg import spd_apply, spd_factor
+from ..particles import group as particle_group, pany, pfirst, pmax, pmean, psum, \
+    split_max, split_min, split_sum
 from ..utils import default_device, full_matmul_precision, lane_where, to_host
-from .coneipm import _soc_W, _soc_inv, _soc_prod, _soc_shift, _soc_step_len, _soc_viol
+from .coneipm import _soc_W, _soc_inv, _soc_prod, _soc_shift, _soc_step_len
 from .reduced import ArrowFactors, CondensedQP, H_apply_factored, arrow_apply, \
     arrow_factor, arrow_factor_diag, assemble_condensed, recover_XU, z_to_w
 
@@ -109,7 +117,7 @@ def box_weighted_K(cqp: CondensedQP, wc, wf, wx, Ftc, Ftf, has_u: bool,
         DFtf = wx[..., None] * Ftf
         Kff = Kff + Ftf.mT @ DFtf
         if cqp.nc > 0:
-            Kcc = Kcc + (Ftc.mT @ (wx[..., None] * Ftc)).sum(dim=-3)
+            Kcc = Kcc + psum((Ftc.mT @ (wx[..., None] * Ftc)).sum(dim=-3))
             Kcf = Kcf + Ftc.mT @ DFtf
     return Kcc, Kcf, Kff
 
@@ -173,6 +181,8 @@ def ipm_core(
         raise ValueError("ipm_core: has_soc=True needs the cone radii (socs)")
     if has_ex and ex is None:
         raise ValueError("ipm_core: has_ex=True needs the extra rows (ex)")
+    if has_ex and particle_group() is not None:
+        raise ValueError("ipm_core: extra rows do not take a particle group")
 
     dtype, dev = cqp.qf.dtype, cqp.qf.device
     B, M, nc, nf = cqp.Hff.shape[0], cqp.M, cqp.nc, cqp.nf
@@ -204,7 +214,8 @@ def ipm_core(
         lo_parts += [ex.h]
         Gf_flat = ex.Gf.reshape(B, ex.h.shape[-1], M * nf)
     mask = torch.isfinite(torch.cat(lo_parts, -1))
-    n_act = mask.sum(-1).to(dtype)
+    n_c = 2 * nc  # the consensus rows lead the flat layout
+    n_act = split_sum(mask, n_c).to(dtype)
 
     # -- cone bookkeeping ------------------------------------------------------
     if has_soc:
@@ -217,7 +228,12 @@ def ipm_core(
         rmaskf = rmask.to(dtype)
         e_soc = torch.zeros((nq, p), dtype=dtype, device=dev)
         e_soc[:, 0] = 1.0
-        n_act = n_act + rmask.sum(-1).to(dtype)
+        n_act = n_act + split_sum(rmask, Nc_soc).to(dtype)
+
+        def soc_viol(v):
+            """`_soc_viol` over the live cones of every rank."""
+            return split_max(rmaskf * (torch.linalg.vector_norm(v[..., 1:], dim=-1)
+                                       - v[..., 0]), Nc_soc)
 
         def cone_vals(uc, uf):
             """h - G z per cone: [r_k; u_stage] (B, nq, p); e on masked cones."""
@@ -277,7 +293,7 @@ def ipm_core(
         bf = (v[:, o_fhi:o_xlo] - v[:, o_flo:o_fhi]).reshape(B, M, nf)
         if has_x:
             dv = (v[:, o_xhi:o_ex] - v[:, o_xlo:o_xhi]).reshape(B, M, NX, 1)
-            bc = bc + (Ftc.mT @ dv)[..., 0].sum(dim=-2)
+            bc = bc + psum((Ftc.mT @ dv)[..., 0].sum(dim=-2))
             bf = bf + (Ftf.mT @ dv)[..., 0]
         if has_ex:
             ve = v[:, None, o_ex:]
@@ -286,9 +302,9 @@ def ipm_core(
         return bc, bf
 
     def mu_of(s_, lam_, sq_, zq_):
-        tot = torch.where(mask, s_ * lam_, 0.0).sum(-1)
+        tot = split_sum(torch.where(mask, s_ * lam_, 0.0), n_c)
         if has_soc:
-            tot = tot + (rmaskf * (sq_ * zq_).sum(-1)).sum(-1)
+            tot = tot + split_sum(rmaskf * (sq_ * zq_).sum(-1), Nc_soc)
         return tot / n_act
 
     # -- initialization -------------------------------------------------------
@@ -361,7 +377,7 @@ def ipm_core(
                 # breakdown retries boost the regularization: a near-singular
                 # K (the cone scalings grow ~1/mu near convergence) makes the
                 # factor NaN; the retry re-solves the same iterate with more
-                diag_scale = (Kff.diagonal(dim1=-2, dim2=-1).mean((-2, -1)) if nf
+                diag_scale = (pmean(Kff.diagonal(dim1=-2, dim2=-1), (-2, -1)) if nf
                               else Kcc.diagonal(dim1=-2, dim2=-1).abs().mean(-1)) + 1.0
                 boost = badc.to(dtype) ** 2 * 1e-5 * diag_scale
                 if nc:
@@ -379,7 +395,7 @@ def ipm_core(
             duc_, duf_ = arrow_apply(F_, bc_, bf_)
             if has_soc:
                 Kcc_, Kcf_, Kff_ = K_
-                oc = _mv(Kcc_, duc_) + _mv(Kcf_, duf_).sum(-2)
+                oc = _mv(Kcc_, duc_) + psum(_mv(Kcf_, duf_).sum(-2))
                 of = _mv(Kcf_.mT, duc_[..., None, :]) + _mv(Kff_, duf_)
                 ddc, ddf = arrow_apply(F_, bc_ - oc, bf_ - of)
                 duc_, duf_ = duc_ + ddc, duf_ + ddf
@@ -455,14 +471,14 @@ def ipm_core(
                               -s_ / torch.where(ds < 0, ds, -1.0), torch.inf)
             rd_ = torch.where(mask & (dlam < 0),
                               -lam_ / torch.where(dlam < 0, dlam, -1.0), torch.inf)
-            mins = torch.stack([rp_, rd_], 1).amin(-1)  # (B, 2)
+            mins = split_min(torch.stack([rp_, rd_], 1), n_c)  # (B, 2)
             ap = torch.clamp(tau * mins[:, 0], max=1.0)
             ad = torch.clamp(tau * mins[:, 1], max=1.0)
             if has_soc:
                 aq_p = torch.where(rmask, _soc_step_len(sq_, dsq), torch.inf)
                 aq_d = torch.where(rmask, _soc_step_len(zq_, dzq), torch.inf)
-                ap = torch.minimum(ap, tau * aq_p.amin(-1))
-                ad = torch.minimum(ad, tau * aq_d.amin(-1))
+                ap = torch.minimum(ap, tau * split_min(aq_p, Nc_soc))
+                ad = torch.minimum(ad, tau * split_min(aq_d, Nc_soc))
             return ap, ad
 
         def ahead(x, a, dx):
@@ -474,11 +490,11 @@ def ipm_core(
             # single-solve mode: no affine probe; the centering parameter
             # from the LOQO distance-to-centrality rule (xi = the least
             # complementarity product / mu). One solve an iteration
-            xi_min = torch.where(mask, s * lam, torch.inf).amin(-1)
+            xi_min = split_min(torch.where(mask, s * lam, torch.inf), n_c)
             if has_soc:
                 prod_q = (sq * zq).sum(-1)
                 xi_min = torch.minimum(
-                    xi_min, torch.where(rmask, prod_q, torch.inf).amin(-1))
+                    xi_min, split_min(torch.where(rmask, prod_q, torch.inf), Nc_soc))
             xi = torch.clamp(xi_min / torch.clamp(mu, min=1e-30), 1e-6, 1.0)
             sigma = 0.1 * torch.clamp(0.05 * (1.0 - xi) / xi, max=2.0) ** 3
             sigma = torch.clamp(sigma, 0.05, 0.8)
@@ -553,27 +569,28 @@ def ipm_core(
             # lands OUTSIDE the cone (after which the primal residual still
             # contracts and the solver "converges" to an infeasible point):
             # an escape is a breakdown, which the retry below restores
-            cone_escaped = (_soc_viol(sq_n, rmaskf) > 0) | (_soc_viol(zq_n, rmaskf) > 0)
+            cone_escaped = (soc_viol(sq_n) > 0) | (soc_viol(zq_n) > 0)
         else:
             sq_n, zq_n = sq, zq
         mu_n = mu_of(s_n, lam_n, sq_n, zq_n)
 
         # convergence / divergence tests (per lane)
-        rp_inf = r_p.abs().amax(-1)
+        rp_inf = split_max(r_p.abs(), n_c)
         if has_soc:
-            rp_inf = torch.maximum(rp_inf, r_pq.abs().amax((-2, -1)))
-        gd_inf = torch.cat([gc, gf.reshape(B, -1)], -1).abs().amax(-1)
+            rp_inf = torch.maximum(rp_inf, split_max(r_pq.abs().amax(-1), Nc_soc))
+        gd_inf = split_max(torch.cat([gc, gf.reshape(B, -1)], -1).abs(), nc)
         # non-finite steps freeze to the PREVIOUS iterate
-        step_bad = ~(torch.isfinite(mu_n) & torch.isfinite(uc_n.sum(-1))
-                     & torch.isfinite(uf_n.sum((-2, -1))))
+        step_bad = pmax(~(torch.isfinite(mu_n) & torch.isfinite(uc_n.sum(-1))
+                          & torch.isfinite(uf_n.sum((-2, -1)))))
         mu_ok = mu_n < mu_ok_floor
         if mu_target > 0:
             # on the central path the products must also be CENTERED at
             # mu_target (that is what makes the point the logbarrier solution)
-            center_err = torch.where(mask, (s_n * lam_n - mu_target).abs(), 0.0).amax(-1)
+            center_err = split_max(torch.where(mask, (s_n * lam_n - mu_target).abs(), 0.0),
+                                   n_c)
             if has_soc:
-                center_err = torch.maximum(center_err, (rmaskf * (
-                    (sq_n * zq_n).sum(-1) - mu_target).abs()).amax(-1))
+                center_err = torch.maximum(center_err, split_max(rmaskf * (
+                    (sq_n * zq_n).sum(-1) - mu_target).abs(), Nc_soc))
             mu_ok = mu_ok & (center_err < 0.002 * mu_target + tol)
         # with cones the dual accuracy is cancellation-limited by the NT
         # scaling near the boundary, with extra rows by the bordered solve at
@@ -583,7 +600,7 @@ def ipm_core(
         now_bad = step_bad | (mu_n > 1e12)
         if has_soc:
             # convergence also needs the NEW primal point to be cone-feasible
-            now_done = now_done & (_soc_viol(cone_vals(uc_n, uf_n), rmaskf) < sqrt_tol)
+            now_done = now_done & (soc_viol(cone_vals(uc_n, uf_n)) < sqrt_tol)
             now_bad = now_bad | cone_escaped
             badc_n = torch.where(now_bad, badc + 1, 0).to(badc.dtype)
             give_up = badc_n >= 4  # repeated breakdowns: stop at the best iterate
@@ -614,7 +631,7 @@ def ipm_core(
     # holds; lanes whose own condition is false keep their state
     while True:
         active = ~state.done & (state.iters < iters)
-        if not bool(active.any()):
+        if not pany(active):
             break
         new = body(state)
         state = IPMState(*(lane_where(active, n, o) for n, o in zip(new, state)))
@@ -633,7 +650,7 @@ def ipm_core(
     if has_soc:
         # an exit at the iteration cap can leave any primal point: only a
         # cone-feasible iterate may be handed back as usable
-        failed = failed | (_soc_viol(cone_vals(state.uc, state.uf), rmaskf) > 2.0 * sqrt_tol)
+        failed = failed | (soc_viol(cone_vals(state.uc, state.uf)) > 2.0 * sqrt_tol)
     stats = dict(mu=state.mu, iters=state.iters, converged=state.ok,
                  failed=failed, s=state.s, lam=state.lam, sq=state.sq, zq=state.zq)
     return state.uc, state.uf, stats
@@ -665,8 +682,9 @@ def _layout_bounds(u_l, u_u, x_l, x_u, M, N, NX, nc, nf, udim, dtype, device=Non
 
 def layout_socs(u_soc_r: torch.Tensor, Nc: int) -> SocSpec:
     """Map (B, M, N) per-stage radii (+inf = no cone) to the consensus cone
-    layout; the consensus stages take particle 0's radii."""
-    return SocSpec(r_c=u_soc_r[:, 0, :Nc], r_f=u_soc_r[:, :, Nc:])
+    layout; the consensus stages take particle 0's radii (the particle
+    group's first rank's, when the particles are spread)."""
+    return SocSpec(r_c=pfirst(u_soc_r[:, 0, :Nc]), r_f=u_soc_r[:, :, Nc:])
 
 
 def map_extras_rows(cqp: CondensedQP, ex_G: torch.Tensor, ex_h: torch.Tensor) -> ExtraRows:

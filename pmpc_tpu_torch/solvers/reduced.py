@@ -8,7 +8,9 @@ M per-particle free blocks.
 
 Every function here works on an explicit leading scenario axis B (the JAX
 package maps a single problem with ``jax.vmap``): particle arrays are
-``(B, M, ...)``, consensus arrays ``(B, nc, ...)``.
+``(B, M, ...)``, consensus arrays ``(B, nc, ...)``. Each sum over the
+particle axis goes through `particles.psum`, so the same code runs a
+problem whose particles are spread over the ranks of a particle group.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from ..dynamics import condense
 from ..ops.linalg import spd_apply, spd_factor, spd_factor_diag
+from ..particles import psum
 
 
 class CondensedQP(NamedTuple):
@@ -128,7 +131,7 @@ def assemble_condensed(x0, f, fx, fu, X_prev, U_prev, Q, R, X_ref, U_ref,
     """
     udim = fu.shape[-1]
     if weights is not None:
-        w = weights / weights.sum(dim=-1, keepdim=True)
+        w = weights / psum(weights.sum(dim=-1, keepdim=True))
         wq = w[..., None, None, None]
         Q, R = Q * wq, R * wq
         reg_x, reg_u = reg_x * w, reg_u * w
@@ -141,10 +144,10 @@ def assemble_condensed(x0, f, fx, fu, X_prev, U_prev, Q, R, X_ref, U_ref,
         reg_x, reg_u, slew_reg, slew_reg0, slew_um1,
     )
     nc = Nc * udim
-    Hcc = H[..., :nc, :nc].sum(dim=-3)
+    Hcc = psum(H[..., :nc, :nc].sum(dim=-3))
     Hcf = H[..., :nc, nc:].contiguous()
     Hff = H[..., nc:, nc:].contiguous()  # the kernel's loop-invariant input
-    qc = q[..., :nc].sum(dim=-2)
+    qc = psum(q[..., :nc].sum(dim=-2))
     qf = q[..., nc:]
     w_prev = U_prev.reshape(U_prev.shape[:-2] + (-1,))
     xdim = f.shape[-1]
@@ -154,6 +157,31 @@ def assemble_condensed(x0, f, fx, fu, X_prev, U_prev, Q, R, X_ref, U_ref,
     Rt = R + reg_u[..., None, None, None] * eye_u
     return CondensedQP(Hcc, Hcf, Hff, qc, qf, Ft, g, w_prev,
                        Qt=Qt, Rt=Rt, sl_reg=slew_reg, sl_reg0=slew_reg0)
+
+
+def update_condensed_linear(cqp: CondensedQP, X_prev, U_prev, Q, R, X_ref, U_ref,
+                            reg_x, reg_u, slew_reg0, slew_um1) -> CondensedQP:
+    """Refresh the prox/ref cost terms (q) of a batch of condensed QPs for a
+    new prox centre, keeping the affine map ``x = Ft w + g`` and every
+    Hessian block: the stale-Jacobian SCP sub-iteration's assembly (one Ft'
+    product in place of the linearization and the condensation). The map is
+    anchored at the old linearization point and holds for any w, so only the
+    centres reg_x X_prev / reg_u U_prev move. At the SCP fixed point the
+    stale subproblem equals the fresh one. Arrays (B, M, ...), as
+    `assemble_condensed` takes them (without particle weights)."""
+    lead = cqp.g.shape[:-1]
+    N = cqp.Qt.shape[-3]
+    nc = cqp.nc
+    xt = (torch.einsum("...nij,...nj->...ni", Q, X_ref)
+          + reg_x[..., None, None] * X_prev).reshape(lead + (-1,))
+    ut = (torch.einsum("...nij,...nj->...ni", R, U_ref)
+          + reg_u[..., None, None] * U_prev).reshape(lead + (-1,))
+    Qg = (cqp.Qt @ cqp.g.reshape(lead + (N, -1, 1))).reshape(lead + (-1,))
+    q = ((Qg - xt)[..., None, :] @ cqp.Ft)[..., 0, :] - ut
+    udim = cqp.Rt.shape[-1]
+    um1_pad = torch.cat([slew_um1, slew_um1.new_zeros(lead + (q.shape[-1] - udim,))], -1)
+    q = q - slew_reg0[..., None] * um1_pad
+    return cqp._replace(qc=psum(q[..., :nc].sum(dim=-2)), qf=q[..., nc:])
 
 
 def H_apply_factored(cqp: CondensedQP, uc: torch.Tensor, uf: torch.Tensor):
@@ -176,7 +204,7 @@ def H_apply_factored(cqp: CondensedQP, uc: torch.Tensor, uf: torch.Tensor):
     Sw[..., 1:, :] += d
     Hw = Hw + cqp.sl_reg[..., None] * Sw.reshape(lead + (-1,))
     Hw[..., :udim] += cqp.sl_reg0[..., None] * U[..., 0, :]
-    return Hw[..., :nc].sum(dim=-2), Hw[..., nc:]
+    return psum(Hw[..., :nc].sum(dim=-2)), Hw[..., nc:]
 
 
 class ArrowFactors(NamedTuple):
@@ -190,7 +218,7 @@ class ArrowFactors(NamedTuple):
 
 def _schur(Kcc, Hcf, Lff, jitter):
     W = spd_apply(Lff, Hcf.mT)  # (B, M, nf, nc)
-    S = Kcc - (Hcf @ W).sum(dim=-3)
+    S = Kcc - psum((Hcf @ W).sum(dim=-3))
     return ArrowFactors(Lff, W, spd_factor(S, jitter=jitter), Hcf)
 
 
@@ -231,7 +259,7 @@ def arrow_apply(F: ArrowFactors, bc, bf):
     if nc == 0:
         return bc, spd_apply(F.Lff, bf)
     y = spd_apply(F.Lff, bf)  # (B, M, nf)
-    rhs = bc - (F.Hcf @ y[..., None])[..., 0].sum(dim=-2)
+    rhs = bc - psum((F.Hcf @ y[..., None])[..., 0].sum(dim=-2))
     uc = spd_apply(F.LS, rhs)
     uf = y - (F.W @ uc[..., None, :, None])[..., 0]
     return uc, uf

@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.linalg import psd_solve
+from ..particles import psum
 from ..utils import full_matmul_precision
 
 
@@ -281,7 +282,7 @@ def riccati_consensus_solve(x0, f, fx, fu, X_prev, U_prev, Q, R, X_ref, U_ref,
             x0, c, A, B, Qt, xt, slew_reg, slew_reg0, slew_um1)
     S, s, gains = _theta_backward(x0s, c, A, B, Qt, xt, Rt, ut, Nc)
     # consensus reduction: sum the theta-quadratics over particles
-    S_tot, s_tot = S.sum(dim=-3), s.sum(dim=-2)
+    S_tot, s_tot = psum(S.sum(dim=-3)), psum(s.sum(dim=-2))
     theta = -psd_solve(S_tot, s_tot) if S_tot.shape[-1] else s_tot
     X, U = _theta_forward(x0s, c, A, B, theta[..., None, :], gains, Nc)
     return X[..., :xdim], U

@@ -51,6 +51,9 @@ predictor's right-hand side rides that sweep as a second column. One IPM
 iteration with state boxes is 8 sweeps: rollout, adjoint, factor, then a
 linear backward and a forward sweep for the predictor, an adjoint for the
 corrector's right-hand side, and the corrector's backward and forward sweep.
+Under a particle group (`particles.particle_scope`) the particle axis holds
+this rank's particles, and the theta sums and the IPM's reductions are
+completed over the group, as in `ipm.ipm_core`.
 """
 
 from __future__ import annotations
@@ -61,8 +64,10 @@ import numpy as np
 import torch
 
 from ..ops.linalg import cholesky_factor, cholesky_solve, spd_apply, spd_factor
+from ..particles import group as particle_group, pany, pfirst, pmax, psum, split_max, \
+    split_min, split_sum
 from ..utils import default_device, full_matmul_precision, lane_where, to_host
-from .coneipm import _soc_W, _soc_inv, _soc_prod, _soc_shift, _soc_step_len, _soc_viol
+from .coneipm import _soc_W, _soc_inv, _soc_prod, _soc_shift, _soc_step_len
 from .ipm import _block_diag, _mv
 from .riccati import _flat, _scp_stage_terms, augment_slew_stages
 
@@ -265,7 +270,7 @@ def _pull_cols(gU, Bn: int, M: int, Nc: int, nct: int):
     g = gU.reshape(Bn, M, N, udim, k)
     gth = g.new_zeros((Bn, nct, k))
     if Nc:
-        gth[:, :Nc * udim] = g[:, :, :Nc].sum(1).reshape(Bn, Nc * udim, k)
+        gth[:, :Nc * udim] = psum(g[:, :, :Nc].sum(1)).reshape(Bn, Nc * udim, k)
     return gth, g[:, :, Nc:].reshape(Bn, M, (N - Nc) * udim, k)
 
 
@@ -322,7 +327,7 @@ def _schur_factor(P0, wc, maskc, xdim: int, kappa: float, S_extra=None):
     nct = maskc.shape[0]
     eye = torch.eye(nct, dtype=P0.dtype, device=P0.device)
     live = maskc[:, None] * maskc[None, :]
-    S_tot = P0[..., xdim:, xdim:].sum(dim=-3) * live \
+    S_tot = psum(P0[..., xdim:, xdim:].sum(dim=-3)) * live \
         + torch.diag_embed(wc * maskc) + (1.0 - maskc) * eye + kappa * eye
     if S_extra is not None:
         S_tot = S_tot + S_extra * live
@@ -339,7 +344,7 @@ def _consensus_solve(fac: RiccatiFactor, B, c, x0, xt, utf, utc, wc, theta_lin,
     Returns (theta (B, nct), X (B, M, N, xdim), U (B, M, N, udim))."""
     p0, k = _lin_backward(fac, B, c, xt, utf, utc, Nc)
     s = p0[..., xdim:] + (fac.P0[..., xdim:, :xdim] @ x0[..., None])[..., 0]
-    rhs = (theta_lin - s.sum(dim=-2)) * maskc
+    rhs = (theta_lin - psum(s.sum(dim=-2))) * maskc
     theta = cholesky_solve(_schur_factor(fac.P0, wc, maskc, xdim, kappa), rhs)
     X, U = _forward(x0, c, fac.Aa[..., :xdim, :xdim], B, fac.K, k, theta, Nc)
     return theta, X, U
@@ -457,7 +462,10 @@ def riccati_ipm_core(
         bound_blocks += [ex_h]
     mask = torch.isfinite(torch.cat(bound_blocks, -1))
     mask[:, :2 * nct] &= (maskc > 0).repeat(2)
-    n_act = mask.sum(-1).to(dtype)
+    if has_ex and particle_group() is not None:
+        raise ValueError("riccati_ipm_core: extra rows do not take a particle group")
+    n_c = 2 * nct  # the consensus rows lead the flat layout
+    n_act = split_sum(mask, n_c).to(dtype)
 
     # -- the cones: (B, nq, p) points, consensus stages first ------------------
     if has_soc:
@@ -468,9 +476,14 @@ def riccati_ipm_core(
         rmaskf = rmask.to(dtype)
         e_soc = torch.zeros((nq, p), dtype=dtype, device=dev)
         e_soc[:, 0] = 1.0
-        n_act = n_act + rmask.sum(-1).to(dtype)
+        n_act = n_act + split_sum(rmask, Nc).to(dtype)
         eye_u = torch.eye(udim, dtype=dtype, device=dev)
         eye_c = torch.eye(nct, dtype=dtype, device=dev)
+
+        def soc_viol(v):
+            """`_soc_viol` over the live cones of every rank."""
+            return split_max(rmaskf * (torch.linalg.vector_norm(v[..., 1:], dim=-1)
+                                       - v[..., 0]), Nc)
 
         def cone_vals(theta, uf):
             """h - G z per cone: [r_k; u_stage] (B, nq, p); e on masked cones."""
@@ -557,9 +570,9 @@ def riccati_ipm_core(
                 (v[:, o_fhi:o_xlo] - v[:, o_flo:o_fhi]).reshape(Bn, M, nfu))
 
     def mu_of(s_, lam_, sq_, zq_):
-        tot = torch.where(mask, s_ * lam_, 0.0).sum(-1)
+        tot = split_sum(torch.where(mask, s_ * lam_, 0.0), n_c)
         if has_soc:
-            tot = tot + (rmaskf * (sq_ * zq_).sum(-1)).sum(-1)
+            tot = tot + split_sum(rmaskf * (sq_ * zq_).sum(-1), Nc)
         return tot / n_act
 
     def newton_factor(wc, wf, wx, Bq_free=None, Sc_blk=None):
@@ -587,7 +600,7 @@ def riccati_ipm_core(
             (B, M, nfu, k)."""
             k_ = bc.shape[-1]
             p0, k = _lin_backward_flat(Aa, Mn, L, Huy, Bf, bf.reshape(nb, Nf, udim, k_), Nc)
-            s = p0[:, xdim:].reshape(Bn, M, nct, k_).sum(1)
+            s = psum(p0[:, xdim:].reshape(Bn, M, nct, k_).sum(1))
             th = cholesky_solve(LS, (bc - s) * maskc[:, None])
             th_p = th[:, None].expand(Bn, M, nct, k_).reshape(nb, nct, k_)
             dX, dU = _forward_flat(Af, Bf, K, k, th_p, Nc)
@@ -751,14 +764,14 @@ def riccati_ipm_core(
                               -s / torch.where(ds < 0, ds, -1.0), torch.inf)
             rd_ = torch.where(mask & (dlam < 0),
                               -lam / torch.where(dlam < 0, dlam, -1.0), torch.inf)
-            mins = torch.stack([rp_, rd_], 1).amin(-1)  # (B, 2)
+            mins = split_min(torch.stack([rp_, rd_], 1), n_c)  # (B, 2)
             ap = torch.clamp(tau * mins[:, 0], max=1.0)
             ad = torch.clamp(tau * mins[:, 1], max=1.0)
             if has_soc:
                 aq_p = torch.where(rmask, _soc_step_len(sq, dsq), torch.inf)
                 aq_d = torch.where(rmask, _soc_step_len(zq, dzq), torch.inf)
-                ap = torch.minimum(ap, tau * aq_p.amin(-1))
-                ad = torch.minimum(ad, tau * aq_d.amin(-1))
+                ap = torch.minimum(ap, tau * split_min(aq_p, Nc))
+                ad = torch.minimum(ad, tau * split_min(aq_d, Nc))
                 # NT scaling assumes s and z move together: separate steps
                 # let a cone crash into its boundary and stall
                 ap = ad = torch.minimum(ap, ad)
@@ -808,25 +821,26 @@ def riccati_ipm_core(
             sq_n, zq_n = sq, zq
         mu_n = mu_of(s_n, lam_n, sq_n, zq_n)
 
-        rp_inf = r_p.abs().amax(-1)
+        rp_inf = split_max(r_p.abs(), n_c)
         if has_soc:
-            rp_inf = torch.maximum(rp_inf, r_pq.abs().amax((-2, -1)))
+            rp_inf = torch.maximum(rp_inf, split_max(r_pq.abs().amax(-1), Nc))
         # full consensus (Nc = N) leaves the free block zero-sized
-        gd_inf = torch.cat([gc, gf.reshape(Bn, -1)], -1).abs().amax(-1)
-        step_bad = ~(torch.isfinite(mu_n) & torch.isfinite(th_n.sum(-1))
-                     & torch.isfinite(uf_n.sum((-2, -1))))
+        gd_inf = split_max(torch.cat([gc, gf.reshape(Bn, -1)], -1).abs(), nct)
+        step_bad = pmax(~(torch.isfinite(mu_n) & torch.isfinite(th_n.sum(-1))
+                          & torch.isfinite(uf_n.sum((-2, -1)))))
         if has_soc:
             # a missed boundary crossing leaves a cone point OUTSIDE its
             # cone: an escape is a breakdown
-            step_bad = step_bad | (_soc_viol(sq_n, rmaskf) > 0) | (_soc_viol(zq_n, rmaskf) > 0)
+            step_bad = step_bad | (soc_viol(sq_n) > 0) | (soc_viol(zq_n) > 0)
         mu_ok = mu_n < mu_ok_floor
         if mu_target > 0:
             # the products must also be CENTERED at mu_target (that is what
             # makes the point the logbarrier solution)
-            center_err = torch.where(mask, (s_n * lam_n - mu_target).abs(), 0.0).amax(-1)
+            center_err = split_max(torch.where(mask, (s_n * lam_n - mu_target).abs(), 0.0),
+                                   n_c)
             if has_soc:
-                center_err = torch.maximum(center_err, (rmaskf * (
-                    (sq_n * zq_n).sum(-1) - mu_target).abs()).amax(-1))
+                center_err = torch.maximum(center_err, split_max(rmaskf * (
+                    (sq_n * zq_n).sum(-1) - mu_target).abs(), Nc))
             mu_ok = mu_ok & (center_err < 0.002 * mu_target + tol)
         # with cones the dual accuracy is cancellation-limited by the NT
         # scaling near the boundary, with extra rows by the bordered solve's
@@ -844,7 +858,7 @@ def riccati_ipm_core(
                                    iters=it_count + 1,
                                    failed=failed | (now_bad & ~done & ~now_done))
         # convergence also needs the NEW primal point to be cone-feasible
-        now_done = now_done & (_soc_viol(cone_vals(th_n, uf_n), rmaskf) < sqrt_tol)
+        now_done = now_done & (soc_viol(cone_vals(th_n, uf_n)) < sqrt_tol)
         # the retry: keep the iterate on a bad step, count the breakdown (the
         # next factor gets the boost) and shift the cone points inward (a
         # crashed cone's scaling overflows: regularization alone cannot fix
@@ -863,7 +877,7 @@ def riccati_ipm_core(
     # sync an iteration
     while True:
         active = ~state.done & (state.iters < iters)
-        if not bool(active.any()):
+        if not pany(active):
             break
         new = body(state)
         state = RIPMState(*(lane_where(active, n, o) for n, o in zip(new, state)))
@@ -1025,14 +1039,14 @@ def riccati_ipm_solve_scp(x0, f, fx, fu, X_prev, U_prev, Q, R, X_ref, U_ref,
             x0, c, A, B, Qt, xt, slew_reg, slew_reg0, slew_um1)
     nc = Nc * udim
     ul, uu = u_l.reshape(Bn, M, N * udim), u_u.reshape(Bn, M, N * udim)
-    if nc:
-        lo_c, hi_c = ul[:, 0, :nc], uu[:, 0, :nc]
+    if nc:  # particle 0's rows (the particle group's first rank's)
+        lo_c, hi_c = pfirst(ul[:, 0, :nc]), pfirst(uu[:, 0, :nc])
     else:
         lo_c = torch.full((Bn, 1), -torch.inf, dtype=f.dtype, device=f.device)
         hi_c = -lo_c
     if u_soc_r is not None:
         r = u_soc_r.expand(Bn, M, N)
-        kw = dict(kw, soc_rc=r[:, 0, :Nc], soc_rf=r[:, :, Nc:])
+        kw = dict(kw, soc_rc=pfirst(r[:, 0, :Nc]), soc_rf=r[:, :, Nc:])
     if ex_h is not None:
         # split the rows into the core's (theta, u_free, state) blocks
         l, nfu = ex_h.shape[-1], (N - Nc) * udim

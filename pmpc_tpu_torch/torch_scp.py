@@ -1,15 +1,18 @@
 """The SCP loop: linearize -> subproblem solve -> Anderson acceleration ->
-early exit, over a batch of scenarios. The subproblem goes one of two ways:
-``method="condensed"`` (condensed assembly -> box IPM or the unconstrained
-solve -> recover) or ``method="riccati"`` (the O(N) stage sweeps of
-`solvers.riccati` / `solvers.riccati_ipm`, which never build the O(N^2)
-condensed map and carry slew coupling by state augmentation).
+early exit, over a batch of scenarios. The subproblem goes one of three
+ways: ``method="condensed"`` (condensed assembly -> box IPM or the
+unconstrained solve -> recover), ``method="riccati"`` (the O(N) stage sweeps
+of `solvers.riccati` / `solvers.riccati_ipm`, which never build the O(N^2)
+condensed map and carry slew coupling by state augmentation) or
+``method="priccati"`` (the same without bounds as associative scans of
+O(log N) depth, `solvers.priccati`; with bounds the Riccati IPM).
 
-Twin of ``pmpc_tpu/jax_scp.py`` for these two methods with control boxes,
-state boxes and per-stage control-norm cones. The JAX solver takes one
-(M, ...) problem and is batched with ``jax.vmap``; this solver takes the
-batch itself, (B, M, ...) arrays, and every per-scenario quantity (iteration
-count, residual, done flag, AA window) is a (B, ...) tensor.
+Twin of ``pmpc_tpu/jax_scp.py``. The JAX solver takes one (M, ...) problem
+and is batched with ``jax.vmap``; this solver takes the batch itself,
+(B, M, ...) arrays, and every per-scenario quantity (iteration count,
+residual, done flag, AA window) is a (B, ...) tensor. The loop is built from
+the three lane-refill pieces the solver carries, ``init_carry``,
+``run_chunk`` and ``extract`` (`stream.solve_stream` drives them).
 
 Usage:
     solver = build_scp_solver(dynamics, N=30, xdim=4, udim=2, M=32, Nc=5,
@@ -19,13 +22,18 @@ Usage:
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
 from .dynamics import linearize
+from .particles import global_particles, pany, pfirst, pmax, pmean, psum, \
+    particle_scope
 from .solvers.ipm import BoxBounds, ipm_core, layout_socs
-from .solvers.reduced import assemble_condensed, recover_XU, solve_eq
+from .solvers.priccati import priccati_consensus_solve
+from .solvers.reduced import assemble_condensed, recover_XU, solve_eq, \
+    update_condensed_linear
 from .solvers.riccati import riccati_consensus_solve
 from .solvers.riccati_ipm import riccati_ipm_solve_scp
 from .utils import default_device, lane_where, matmul_precision_scope
@@ -105,10 +113,6 @@ def make_scp_data(
     )
 
 
-def _unsupported(what: str, item: str):
-    raise NotImplementedError(f"build_scp_solver: {what} is not ported yet ({item})")
-
-
 def build_scp_solver(
     dynamics: Callable,
     N: int,
@@ -142,6 +146,7 @@ def build_scp_solver(
     accel_wmax: float = 50.0,
     relin_stale: int = 0,
     riccati_unroll: Optional[int] = None,
+    particle_group=None,
 ) -> Callable:
     """Build the batched SCP solver for fixed problem dimensions.
 
@@ -180,16 +185,39 @@ def build_scp_solver(
     the next linearization point combines the last ``accel_window``
     subproblem solutions; the RETURNED solution is always the last accepted
     raw subproblem solution (bound-feasible).
+    ``method="priccati"`` runs the unbounded subproblem as associative scans
+    (`solvers.priccati`, O(log N) depth); with bounds it takes the Riccati
+    IPM, as the JAX `build_scp_solver` does. It refuses state boxes and cones, and
+    without bounds slew coupling (``NotImplementedError``, the JAX messages).
+    ``relin_stale=k`` (condensed only) follows each fresh SCP iteration by k
+    stale-Jacobian sub-iterations: they keep (f, fx, fu), the affine map and
+    the Hessian blocks of the last assembly and refresh only q
+    (`reduced.update_condensed_linear`); the iteration count counts
+    sub-steps, so ``max_it`` bounds the subproblem solves (the test runs
+    between super-iterations, so a lane can overshoot it by k).
+    ``particle_group``: a `torch.distributed` group over which each
+    problem's particles are spread, ``M`` of them on this rank (what
+    `parallel.make_sharded_solver` builds); every reduction over particles
+    is completed over the group (`particles`).
 
     Returns ``solver(data, state=None) -> (X (B,M,N+1,xdim), U (B,M,N,udim),
     info)`` with ``info`` keys iters, resid, converged, resid_particle (and
-    solver_state with ``return_state``), each with a leading B axis.
+    solver_state with ``return_state``), each with a leading B axis. The
+    solver carries the lane-refill pieces it is built from:
+    ``init_carry(data, state=None)`` (the loop's carry), ``run_chunk(data,
+    carry, n_it=1, max_it=None)`` (``n_it`` iterations; converged, frozen
+    and capped lanes do not move) and ``extract(data, carry)`` (the
+    solver's return contract), with ``max_it`` and ``rebuild(**changes)``
+    (this call of `build_scp_solver` with some arguments changed; ``build_args`` holds
+    the call's arguments but ``dynamics``).
     """
+    build_args = {k: v for k, v in locals().items() if k != "dynamics"}
     if method not in ("condensed", "riccati", "priccati"):
         raise ValueError(f"unknown method {method!r}")
-    if method == "priccati":
-        _unsupported("method='priccati' (the sweeps as associative scans)",
-                     "ROADMAP §1.11: to be decided by measurement on the card")
+    if method == "priccati" and (has_x_bounds or has_u_soc):
+        raise NotImplementedError(
+            "method='priccati' does not support state boxes or SOC cones; "
+            "use method='riccati'")
     if relin_stale and method != "condensed":
         raise ValueError(
             "relin_stale (stale-Jacobian sub-iterations) is only supported "
@@ -204,17 +232,19 @@ def build_scp_solver(
         # the stage-structured IPM has no Gondzio correctors (the JAX
         # `build_scp_solver` drops the flag there silently; ROADMAP §3 F6)
         raise ValueError("ipm_gondzio is only supported with method='condensed'")
-    if relin_stale:
-        _unsupported("relin_stale", "ROADMAP §1.11")
     if accel not in ("", "AA"):
         raise ValueError(f"unknown accel {accel!r} (use '' or 'AA')")
     Nc = Nc if Nc >= 0 else N
-    if M == 1:
+    if global_particles(M, particle_group) == 1:
         Nc = 0  # single particle: consensus is a no-op; keep stage structure
     has_bounds = has_u_bounds or has_x_bounds or has_u_soc
+    if method == "priccati" and has_slew and not has_bounds:
+        raise NotImplementedError(
+            "method='priccati' does not support slew coupling; "
+            "use method='riccati'")
     AW = int(accel_window)
     nc, nx = Nc * udim, M * N * xdim
-    riccati = method == "riccati"
+    riccati = method in ("riccati", "priccati")
     # `jax_scp.hot_matmul_precision` needs no twin: every core here already
     # runs IEEE f32 matmuls with TF32 off (`matmul_precision_scope`)
 
@@ -226,8 +256,8 @@ def build_scp_solver(
         ar = torch.arange(AW - 1, device=Fk.device)
         valid = (ar[None, :] >= (AW - nh)[:, None]).to(dt)  # older slots
         D = (histF[:, :-1] - Fk[:, None, :]) * valid[..., None]  # (B, AW-1, n)
-        G = D @ D.mT
-        rhs = -(D @ Fk[..., None])[..., 0]
+        G = psum(D @ D.mT)
+        rhs = psum(-(D @ Fk[..., None])[..., 0])
         eps = 1e-6 * (G.diagonal(dim1=-2, dim2=-1).sum(-1) / (AW - 1) + 1e-30)
         eye = torch.eye(AW - 1, dtype=dt, device=Fk.device)
         # solve_ex: a singular or non-finite system gives inf/NaN weights
@@ -240,10 +270,19 @@ def build_scp_solver(
         return Z_acc, wmass
 
     def iteration(data: SCPData, carry):
+        """One SCP iteration: linearize at the carry's iterate, then the
+        fresh sub-iteration and ``relin_stale`` stale ones that reuse the
+        linearization (and the condensed map and Hessian blocks)."""
+        X_ = torch.cat([data.x0[:, :, None, :], carry[0][:, :, :-1, :]], dim=2)
+        f, fx, fu = linearize(dynamics, X_, carry[1], data.params)
+        carry, ys, cqp = _sub_iteration(data, carry, f, fx, fu, None)
+        for _ in range(relin_stale):
+            carry, ys, cqp = _sub_iteration(data, carry, f, fx, fu, cqp)
+        return carry, ys
+
+    def _sub_iteration(data: SCPData, carry, f, fx, fu, cqp_prev):
         X_prev, U_prev, it, done, resid, resid_m, warm, acc = carry
         B = X_prev.shape[0]
-        X_ = torch.cat([data.x0[:, :, None, :], X_prev[:, :, :-1, :]], dim=2)
-        f, fx, fu = linearize(dynamics, X_, U_prev, data.params)
         X_ref, U_ref = data.X_ref, data.U_ref
         if lin_cost_fn is not None:
             cx, cu = lin_cost_fn(X_prev, U_prev, data)
@@ -278,7 +317,8 @@ def build_scp_solver(
                 # a silent drop of slew terms would return wrong solutions:
                 # poison the lane instead (the NaN contract freezes the
                 # iterate and reports not-converged)
-                slew_present = (data.slew_reg.amax(-1) > 0) | (data.slew_reg0.amax(-1) > 0)
+                slew_present = pmax((data.slew_reg.amax(-1) > 0)
+                                    | (data.slew_reg0.amax(-1) > 0))
                 poison = torch.where(slew_present, torch.nan, 1.0).to(dt)[:, None, None, None]
             if has_bounds:
                 xbox_kw = dict(x_l=data.x_l, x_u=data.x_u) if has_x_bounds else {}
@@ -294,21 +334,32 @@ def build_scp_solver(
                     + ((stats["sq"], stats["zq"]) if has_u_soc else ()) \
                     if warm_start else warm
             else:
-                X, U = riccati_consensus_solve(
+                # priccati: the same subproblem by associative scans (it
+                # takes no slew terms: refused at build time)
+                consensus = priccati_consensus_solve if method == "priccati" \
+                    else riccati_consensus_solve
+                X, U = consensus(
                     data.x0, f, fx, fu, X_prev, U_prev, data.Q, data.R, X_ref, U_ref,
                     data.reg_x, data.reg_u, Nc=Nc, **slew_kw)
                 warm_new = warm
             if poison is not None:
                 X, U = X * poison, U * poison
         else:
-            cqp = assemble_condensed(
-                data.x0, f, fx, fu, X_prev, U_prev, data.Q, data.R,
-                X_ref, U_ref, data.reg_x, data.reg_u, data.slew_reg,
-                data.slew_reg0, data.slew_um1, Nc=Nc)
+            if cqp_prev is None:
+                cqp = assemble_condensed(
+                    data.x0, f, fx, fu, X_prev, U_prev, data.Q, data.R,
+                    X_ref, U_ref, data.reg_x, data.reg_u, data.slew_reg,
+                    data.slew_reg0, data.slew_um1, Nc=Nc)
+            else:  # a stale sub-iteration: only q moves
+                cqp = update_condensed_linear(
+                    cqp_prev, X_prev, U_prev, data.Q, data.R, X_ref, U_ref,
+                    data.reg_x, data.reg_u, data.slew_reg0, data.slew_um1)
             if has_bounds:
                 ul = data.u_l.reshape(B, M, N * udim)
                 uu = data.u_u.reshape(B, M, N * udim)
-                bounds = BoxBounds(lo_c=ul[:, 0, :nc], hi_c=uu[:, 0, :nc],
+                # the consensus bounds follow particle 0 (on the group's
+                # first rank when the particles are spread)
+                bounds = BoxBounds(lo_c=pfirst(ul[:, 0, :nc]), hi_c=pfirst(uu[:, 0, :nc]),
                                    lo_f=ul[:, :, nc:], hi_f=uu[:, :, nc:],
                                    lo_x=data.x_l.reshape(B, M, N * xdim),
                                    hi_x=data.x_u.reshape(B, M, N * xdim))
@@ -330,7 +381,7 @@ def build_scp_solver(
         resid_m_new = torch.maximum(
             torch.linalg.vector_norm(dX, dim=-1).amax(-1),
             torch.linalg.vector_norm(dU, dim=-1).amax(-1))
-        new_resid = resid_m_new.amax(-1)
+        new_resid = pmax(resid_m_new.amax(-1))
         # a non-finite solution, or a gave-up IPM (its iterate has no
         # feasibility guarantee), is rejected: keep the last accepted iterate
         bad = ~torch.isfinite(new_resid)
@@ -369,7 +420,7 @@ def build_scp_solver(
         return (keep(X_prev, X_lin), keep(U_prev, U_lin),
                 it + torch.where(done, 0, 1).to(it.dtype), done | now_done,
                 keep(resid, new_resid), keep(resid_m, resid_m_new),
-                keep(warm, warm_new), acc_out), ys
+                keep(warm, warm_new), acc_out), ys, None if riccati else cqp
 
     def init_warm_acc(data: SCPData, state=None):
         B = data.x0.shape[0]
@@ -390,7 +441,7 @@ def build_scp_solver(
                 Uflat = data.U_prev.reshape(B, M, -1)
                 s_w = torch.ones((B, mtot), dtype=dt, device=dev)
                 uc_w = torch.zeros((B, nct), dtype=dt, device=dev)
-                uc_w[:, :nc] = Uflat[:, :, :nc].mean(1)
+                uc_w[:, :nc] = pmean(Uflat[:, :, :nc], 1)
                 warm0 = (uc_w, Uflat[:, :, nc:], s_w, s_w)
                 if has_u_soc:  # the cones' slacks and duals at the unit point
                     e0 = torch.zeros((B, Nc + M * (N - Nc), udim + 1), dtype=dt, device=dev)
@@ -405,56 +456,86 @@ def build_scp_solver(
                     data.X_prev, data.U_prev)
         return warm0, acc0
 
-    def solver(data: SCPData, state=None):
-        """``state``: the IPM warm tuple a previous call returned in
-        ``info["solver_state"]`` (built with ``return_state=True``)."""
+    @contextlib.contextmanager
+    def scope():
+        with matmul_precision_scope(), particle_scope(particle_group):
+            yield
+
+    def init_carry(data: SCPData, state=None):
+        """The loop's carry for a batch of problems (``state``: a previous
+        call's ``info["solver_state"]``): the lane-refill serving loop
+        re-initializes only the rows of lanes that take a new problem."""
         if has_u_soc and data.u_soc_r is None:
             raise ValueError("has_u_soc=True needs the cone radii data.u_soc_r")
-        with matmul_precision_scope():
+        with scope():
             B = data.x0.shape[0]
             dt, dev = data.Q.dtype, data.Q.device
             warm0, acc0 = init_warm_acc(data, state)
-            carry = (data.X_prev, data.U_prev,
-                     torch.zeros(B, dtype=torch.int32, device=dev),
-                     torch.zeros(B, dtype=torch.bool, device=dev),
-                     torch.full((B,), torch.inf, dtype=dt, device=dev),
-                     torch.full((B, M), torch.inf, dtype=dt, device=dev),
-                     warm0, acc0)
+            return (data.X_prev, data.U_prev,
+                    torch.zeros(B, dtype=torch.int32, device=dev),
+                    torch.zeros(B, dtype=torch.bool, device=dev),
+                    torch.full((B,), torch.inf, dtype=dt, device=dev),
+                    torch.full((B, M), torch.inf, dtype=dt, device=dev),
+                    warm0, acc0)
+
+    def step(data: SCPData, carry, cap: Optional[int]):
+        new, ys = iteration(data, carry)
+        if cap is None:  # done and frozen lanes keep their carry in `iteration`
+            return new, ys
+        # as `jax.vmap(lax.while_loop)` runs it: lanes at the cap keep theirs
+        active = ~carry[3] & (carry[2] < cap)
+        return tuple(_sel_tree(active, n, o) for n, o in zip(new, carry)), ys
+
+    def run_chunk(data: SCPData, carry, n_it: int = 1, max_it: Optional[int] = None):
+        """Advance every lane by ``n_it`` SCP iterations with no host read of
+        the SCP loop (an IPM still tests its own loop once an iteration).
+        Converged and frozen lanes do not move, nor, with ``max_it``, lanes
+        at that count; without it, as the JAX ``run_chunk``, the solver's
+        own ``max_it`` is no cap (the stream retires a lane at its budget)."""
+        with scope():
+            for _ in range(n_it):
+                carry, _ = step(data, carry, max_it)
+            return carry
+
+    def extract(data: SCPData, carry):
+        """(X_traj, U, info) from a carry: the solver's return contract."""
+        X, U, it, done, resid, resid_m, warm_fin, acc_fin = carry
+        if accel:
+            # the last accepted RAW subproblem solution: feasible to IPM
+            # tolerance, unlike the AA combination used for linearization
+            X, U = acc_fin[3], acc_fin[4]
+        X_traj = torch.cat([data.x0[:, :, None, :], X], dim=2)
+        info = dict(iters=it, resid=resid, converged=resid < res_tol,
+                    resid_particle=resid_m)
+        if return_state:
+            info["solver_state"] = warm_fin
+        return X_traj, U, info
+
+    def solver(data: SCPData, state=None):
+        """``state``: the IPM warm tuple a previous call returned in
+        ``info["solver_state"]`` (built with ``return_state=True``)."""
+        carry = init_carry(data, state)
+        with scope():
             ys = []
             if collect_stats:
                 # the fixed-length `lax.scan`: converged lanes freeze in place
                 for _ in range(max_it):
-                    carry, y = iteration(data, carry)
+                    carry, y = step(data, carry, None)
                     ys.append(y)
             else:
                 # early exit, as `jax.vmap(lax.while_loop)` runs it: iterate
-                # while any lane is active; inactive lanes keep their carry
-                while True:
-                    active = ~carry[3] & (carry[2] < max_it)
-                    if not bool(active.any()):
-                        break
-                    new, _ = iteration(data, carry)
-                    carry = tuple(_sel_tree(active, n, o)
-                                  for n, o in zip(new, carry))
-            X, U, it, done, resid, resid_m, warm_fin, acc_fin = carry
-            if accel:
-                # the last accepted RAW subproblem solution: feasible to IPM
-                # tolerance, unlike the AA combination used for linearization
-                X, U = acc_fin[3], acc_fin[4]
-            X_traj = torch.cat([data.x0[:, :, None, :], X], dim=2)
-            info = dict(iters=it, resid=resid, converged=resid < res_tol,
-                        resid_particle=resid_m)
+                # while any lane is active (one host read an iteration)
+                while pany(~carry[3] & (carry[2] < max_it)):
+                    carry = run_chunk(data, carry, 1, max_it)
+            X_traj, U, info = extract(data, carry)
             if collect_stats:
                 info["scan_stats"] = {k: torch.stack([y[k] for y in ys], dim=1)
                                       for k in ys[0]}
-            if return_state:
-                info["solver_state"] = warm_fin
             return X_traj, U, info
 
-    def lane_refill(*args, **kwargs):
-        _unsupported("init_carry/run_chunk/extract (lane refill)", "ROADMAP §1.5")
-
-    solver.init_carry = solver.run_chunk = solver.extract = lane_refill
+    solver.init_carry, solver.run_chunk, solver.extract = init_carry, run_chunk, extract
+    solver.max_it, solver.build_args = max_it, build_args
+    solver.rebuild = lambda **changes: build_scp_solver(dynamics, **{**build_args, **changes})
     return solver
 
 

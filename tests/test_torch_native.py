@@ -5,6 +5,8 @@ binding's output, the same library), `admm_box_qp` and `AdmmSolver` on
 tests/test_native.py's cases, equal to the JAX binding's results. Skips
 when the library cannot be built (no make or no C++ compiler)."""
 
+import time
+
 import numpy as np
 import pytest
 
@@ -18,8 +20,21 @@ KW = dict(max_iter=20000, eps=1e-11)
 
 @pytest.fixture(scope="module")
 def lib():
+    """The port's library (its own locked build), and the JAX binding's
+    loaded for the comparisons. Every xdist worker imports
+    tests/test_native.py, whose collection runs ``make -C native`` at once in
+    each: a worker that opened the library while another worker's compiler
+    wrote it caches a failed load. Clear that cache and load again while
+    the other worker's build finishes."""
     if not tnat.available():
-        pytest.skip("the native library cannot be built here (make / a C++ compiler)")
+        pytest.skip("the native library cannot be built here (a C++ compiler)")
+    for _ in range(60):
+        if jnat._LIB is not None:
+            break
+        jnat._TRIED = False
+        if jnat.load() is None:
+            time.sleep(0.5)
+    assert jnat._LIB is not None, "the JAX binding's library did not load"
     return tnat.load()
 
 

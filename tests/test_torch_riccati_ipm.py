@@ -262,11 +262,17 @@ def test_unported_options_raise_naming_the_roadmap():
         X, U, st = tipm.riccati_ipm_solve_scp(*base, *box, Nc=2, **kw)
         assert torch.isfinite(U).all() and st["converged"].all()
     assert callable(tipm.riccati_ipm_solve_np)
-    # what stays unported in the stage-structured route raises, naming the roadmap
+    # the associative-scan route is ported since (tests/test_torch_priccati.py):
+    # it builds, and it runs the unbounded subproblem
     from pmpc_tpu_torch import torch_scp
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_scp.build_scp_solver(lambda x, u: x, N=6, xdim=4, udim=2, M=2, method="priccati")
+    solver = torch_scp.build_scp_solver(lambda x, u: x + 0.1 * torch.cat([x[2:], u]),
+                                        N=6, xdim=4, udim=2, M=2, method="priccati")
+    data = torch_scp.make_scp_data(torch.ones(B, 2, 4, dtype=torch.float64),
+                                   torch.eye(4, dtype=torch.float64).expand(B, 2, 6, 4, 4),
+                                   1e-2 * torch.eye(2, dtype=torch.float64).expand(B, 2, 6, 2, 2))
+    _, U, info = solver(data)
+    assert torch.isfinite(U).all() and info["converged"].all()
 
 
 def _extra_rows(p, Nc, seed):

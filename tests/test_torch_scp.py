@@ -97,13 +97,21 @@ def test_state_round_trip_and_unported_options():
     assert uc.shape == (2, 2) and uf.shape == (2, 2, 10) and s.shape == lam.shape
     _, U2, info2 = solver(data, info1["solver_state"])
     assert torch.isfinite(U2).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solver.init_carry(data)
+    # lane refill (ported since): the solver is init_carry, run_chunk to the
+    # cap and extract, and a chunked run of those gives its answer exactly
+    carry = solver.init_carry(data, info1["solver_state"])
+    carry = solver.run_chunk(data, carry, n_it=solver.max_it + 2, max_it=solver.max_it)
+    _, U3, info3 = solver.extract(data, carry)
+    torch.testing.assert_close(U3, U2, rtol=0, atol=0)
+    torch.testing.assert_close(info3["iters"], info2["iters"], rtol=0, atol=0)
+    assert set(info3) == set(info2)
+    # priccati and relin_stale (ported since: tests/test_torch_priccati.py,
+    # tests/test_torch_relin_stale.py) build and run
     for kw in (dict(method="priccati"), dict(relin_stale=1)):
-        args = dict(N=6, xdim=4, udim=2, M=2, has_u_bounds=True)
+        args = dict(N=6, xdim=4, udim=2, M=2, Nc=1, max_it=5, has_u_bounds=True, ipm_iters=10)
         args.update(kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            torch_scp.build_scp_solver(dubins, **args)
+        _, U4, _ = torch_scp.build_scp_solver(dubins, **args)(data)
+        assert torch.isfinite(U4).all() and U4.abs().max() <= 1.0 + 1e-6
     # ported since (tests/test_torch_soc.py, tests/test_torch_ipm_options.py);
     # cones need their radii in the data
     for kw in (dict(has_u_soc=True), dict(ipm_gondzio=1), dict(ipm_predictor=False),
@@ -494,8 +502,15 @@ def test_long_horizon_config_matches_vmapped_jax():
 
 def test_riccati_gates():
     args = dict(N=6, xdim=4, udim=2, M=2, has_u_bounds=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1.11"):
-        torch_scp.build_scp_solver(dubins, method="priccati", **args)
+    # priccati is ported (tests/test_torch_priccati.py); what the JAX
+    # build_scp_solver refuses on that route, the port refuses with its messages
+    torch_scp.build_scp_solver(dubins, method="priccati", **args)
+    for kw in (dict(has_u_soc=True), dict(has_x_bounds=True)):
+        with pytest.raises(NotImplementedError, match="state boxes or SOC cones"):
+            torch_scp.build_scp_solver(dubins, method="priccati", **args, **kw)
+    with pytest.raises(NotImplementedError, match="slew coupling"):
+        torch_scp.build_scp_solver(dubins, N=6, xdim=4, udim=2, M=2, method="priccati",
+                                   has_slew=True)
     for kw in (dict(has_u_soc=True), dict(mu_target=0.1)):  # ported since
         torch_scp.build_scp_solver(dubins, method="riccati", **args, **kw)
     for kw in (dict(relin_stale=1), dict(ipm_predictor=False), dict(ipm_gondzio=1)):
@@ -553,7 +568,10 @@ def test_port_imports_no_jax():
             "pmpc_tpu_torch.filters", "pmpc_tpu_torch.accelerated", "pmpc_tpu_torch.tune",
             "pmpc_tpu_torch.experimental", "pmpc_tpu_torch.batch", "pmpc_tpu_torch.remote",
             "pmpc_tpu_torch.warmup", "pmpc_tpu_torch.sensitivity",
-            "pmpc_tpu_torch.native", "pmpc_tpu_torch.ipm_crawl"} <= set(mods)
+            "pmpc_tpu_torch.native", "pmpc_tpu_torch.ipm_crawl", "pmpc_tpu_torch.stream",
+            "pmpc_tpu_torch.particles", "pmpc_tpu_torch.solvers.priccati",
+            "pmpc_tpu_torch.parallel.mesh", "pmpc_tpu_torch.parallel.sharded",
+            "pmpc_tpu_torch.parallel.distributed", "pmpc_tpu_torch.parallel.check"} <= set(mods)
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
