@@ -89,7 +89,9 @@ then phase 9 once more for the shapes phases 10-18 launched;
    strictly inside the box, every barrier solve of the last SCP iteration
    converged; the first SCP iteration of 4 problems on the card against the
    host CPU (U to 1e-6, to 1e-8 where the Newton counts agree, both counts
-   printed) and problem 0's full call on both (reported);
+   printed) and problem 0's first SINGLE_IT = 3 SCP iterations on both
+   (reported; its full call, 10-15 SCP iterations, is cut to that depth to
+   make room for phases 26-27);
 20. phase 18's program plus one user exponential cone per particle (a soft
    terminal-speed limit whose aux costs linearly): nv = 73, K4 alone at
    (64, 73, 73) f64; converged >= 0.95 B, boxes and keep-in cones to 1e-6,
@@ -167,7 +169,26 @@ then phase 9 once more for the shapes phases 19-22 launched;
    card over gloo (`parallel.check`), meshes 1 x 2 and 2 x 1, f64, against
    the unsharded solver (U to 1e-7, equal counts), each rank's K1 / K2
    launches by shape (K1 at (128, 50, 50) and K2 at (8, 10, 10) on the
-   particle mesh). Then phase 9 once more; phase 25 prints its seconds.
+   particle mesh); each spawned rank then holds every shape it launched
+   against the plain version. Then phase 9 once more; phase 25 prints its
+   seconds.
+26. BASELINE configs 1, 2 and 4 (`flagship.baseline_config`: the Dubins car
+   at N=20, unbounded, so every subproblem is `solve_eq`; 1: M=1, B=512; 2:
+   M=10 sharing the first control, B=128; 4: config 1 with the obstacle
+   ``lin_cost_fn``, B=512) under CONFIG_KW (max_it 25, res_tol 1e-3, AA),
+   f32 then f64, each warmed: `report`'s numbers, the launches by shape
+   (K2 alone), |U32 - U64|, f64 converged_frac >= 0.95, config 2's spread
+   of u_0 over the particles <= 1e-6 in f64 (reported in f32); the first 8
+   lanes in f64 on the card against the CPU (plain factors), U to 1e-7;
+27. the five example scripts of the port (`pmpc_tpu_torch.examples`) at
+   their full sizes on the card: simple_demo, batch_solver (B=1000: K1 at
+   (1000, 40, 40) gated), custom_cost, receding_horizon (N=20, T=30, the
+   fused and the host loop: both must reduce the tracking error) and
+   arbitrary_constraints; each timed, its returned numbers printed (finite),
+   its own checks gated, its launches by shape; then every shape phases
+   26-27 launched that phase 3 did not time is timed beside its plain
+   version, the library calls and its bound, with its launches per call,
+   and phase 9 once more. Each of 26-27 prints its seconds.
 Then one JSON line for the kernels and, last, one JSON line for the run.
 Every solver phase sets
 the launch counts to 0 before its timed call and reads them after it.
@@ -241,6 +262,7 @@ K1_SHARD = (128, 50)  # K1 in f64: one rank's particle blocks, the 1 x 2 mesh (p
 K2_SHARD = (8, 10)  # K2 in f64: one rank's consensus Schur blocks after the all-reduce (25 (d))
 B_CONFIG3 = 512
 B_CONE, M_CVAR, K_CVAR, B_CHECK = 64, 4, 3, 4  # phases 17-20
+SINGLE_IT = 3  # phases 19-20: the SCP iterations of problem 0's card-against-CPU call
 ALPHA_LOG, ALPHA_SQ = 50.0, 8.0  # phases 19 and 21-22: logbarrier and squareplus alpha
 NV_LOG, NV_EXP = 213, 73  # the composed programs' widths in phases 19 and 20
 LBFGS_ITERS, COST_ITERS = 8000, 1000  # phase 21: L-BFGS iterations (logbarrier, user cost)
@@ -329,6 +351,28 @@ def time_ms(fn, reps=50):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def time_shape(name, diag, B, n, dtype, dev, card, r, note=""):
+    """Kernel, plain version and library calls at one shape, timed in the
+    order plain, library, kernel, kernel, library, plain, and the bound:
+    into ``r`` and one printed line."""
+    A, w = spd_inputs(B, n, dtype, dev)
+    fns = {"plain": lambda: run(diag, A, w, plain=True),
+           "library": lambda: library(diag, A, w),
+           "kernel": lambda: run(diag, A, w)}
+    t = {}
+    for k in ("plain", "library", "kernel", "kernel", "library", "plain"):
+        t.setdefault(k, []).append(time_ms(fns[k]))
+    r["ms"], r["plain_ms"], r["library_ms"] = (
+        sum(t[k]) / 2 for k in ("kernel", "plain", "library"))
+    r["bound_ms"], r["bound_by"] = bound(diag, A, w)
+    TIMED.add((name, B, n, dtype))
+    print(f"  {name} ({B}, {n}, {n}) {str(dtype)[6:]}: kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, library (cholesky_ex + solve_triangular) "
+          f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4g} ms by "
+          f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.3g}% of it){note} [{card}]")
+    return r
 
 
 def phase_card():
@@ -447,21 +491,7 @@ def phase_kernels(dev, card):
               ("inv_cholesky_diag", True, *K1_SHARD, f64, other[K1_SHARD + (f64,)]),
               ("inv_cholesky", False, *K2_SHARD, f64, other[K2_SHARD + (f64,)])]
     for name, diag, B, n, dtype, r in timed:
-        A, w = spd_inputs(B, n, dtype, dev)
-        fns = {"plain": lambda: run(diag, A, w, plain=True),
-               "library": lambda: library(diag, A, w),
-               "kernel": lambda: run(diag, A, w)}
-        order = ("plain", "library", "kernel", "kernel", "library", "plain")
-        t = {}
-        for k in order:
-            t.setdefault(k, []).append(time_ms(fns[k]))
-        r["ms"], r["plain_ms"], r["library_ms"] = (
-            sum(t[k]) / 2 for k in ("kernel", "plain", "library"))
-        r["bound_ms"], r["bound_by"] = bound(diag, A, w)
-        print(f"  {name} ({B}, {n}, {n}) {str(dtype)[6:]}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library (cholesky_ex + solve_triangular) "
-              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
-              f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}% of it) [{card}]")
+        time_shape(name, diag, B, n, dtype, dev, card, r)
     # K2's main shape is launch-bound: its floor is a kernel that does nothing
     k2 = results["inv_cholesky"]
     k2["launch_floor_ms"] = time_ms(chol_inv.empty_launch)
@@ -1095,8 +1125,8 @@ def card_against_cpu(tag, first, st_g, out_g, dev, single, card):
     """[19]/[20]: the first SCP iteration of the first B_CHECK problems on the
     card (``out_g``, ``st_g``: the card's call over the batch) against the
     same call on the host CPU: U to 1e-6 and, on the lanes whose Newton step
-    counts agree, to 1e-8; then one problem's full call on the card against
-    the CPU (reported)."""
+    counts agree, to 1e-8; then one problem's first SINGLE_IT SCP iterations
+    on the card against the CPU (reported)."""
     cpu = torch.device("cpu")
     st_c = {}
     out_c, dt_c, _ = cone_call(first[:B_CHECK], cpu, st_c)
@@ -1110,9 +1140,11 @@ def card_against_cpu(tag, first, st_g, out_g, dev, single, card):
     require(dU.max() <= 1e-6 and (dU[same].max(initial=0.0) <= 1e-8),
             f"[{tag}] first SCP iteration: card and CPU differ by {dU.max():.3e} (equal "
             f"Newton counts on {same.tolist()})")
+    single = [dict(p, max_it=SINGLE_IT) for p in single]
     out1, dt1, _ = cone_call(single, dev)
     out1c, dt1c, _ = cone_call(single, cpu)
-    print(f"    problem 0's full call: card {dt1 * 1e3:.1f} ms, host CPU {dt1c * 1e3:.1f} ms, "
+    print(f"    problem 0's first {SINGLE_IT} SCP iterations: card {dt1 * 1e3:.1f} ms, host CPU "
+          f"{dt1c * 1e3:.1f} ms, "
           f"SCP iterations {out1[0][2]['iters']} / {out1c[0][2]['iters']}, |dU|_inf = "
           f"{np.abs(stack_U(out1) - stack_U(out1c)).max():.3e} (reported) [{card}]")
 
@@ -2119,6 +2151,10 @@ def phase_sharded(dev, card):
     meshes = {name: m["flagship"] for name, m in (rep or {}).get("meshes", {}).items()}
     require(rep is not None and all(m["ok"] for m in meshes.values()),
             "[25] (d) two gloo ranks on one card: a mesh disagrees with the unsharded solver")
+    if rep is not None:
+        print(f"[25] (d) each rank's launched shapes against the plain versions: "
+              f"{rep['kernels_vs_plain']}")
+        require(rep["kernels_ok"], "[25] (d) a rank's kernel disagrees with its plain version")
     shapes = {}
     for name, m in meshes.items():
         print(f"[25] (d) 2 ranks on cuda:0 over gloo, mesh {name}: flagship B={B_SHARD} f64, "
@@ -2134,6 +2170,148 @@ def phase_sharded(dev, card):
             f"[25] (d) rank 0 of the 1 x 2 mesh did not launch K1 at {K1_SHARD} and K2 at "
             f"{K2_SHARD}: {r0}")
     return shapes
+
+
+B_CPU_LANES = 8  # phase 26: the first lanes of each config held against the CPU
+TIMED = set()  # (kernel name, batch, n, dtype) timed in phase 3 or after 27
+
+
+def shapes_since(before):
+    """The launches by (kernel name, batch, n, dtype) since ``before``, a copy
+    of `chol_inv.SHAPES`."""
+    return dict(chol_inv.SHAPES - before)
+
+
+def fmt_shapes(by_shape):
+    return ", ".join(f"{k[0]} ({k[1]}, {k[2]}, {k[2]}) {str(k[3])[6:]}: {v}"
+                     for k, v in sorted(by_shape.items(), key=str)) or "none"
+
+
+def first_lanes(data, n):
+    return pmpc_tpu_torch.SCPData(*(None if a is None else a[:n] for a in data))
+
+
+def phase_baseline_configs(dev, card, shapes):
+    """[26] BASELINE configs 1, 2 and 4 (`flagship.baseline_config`: the
+    Dubins car at N=20, unbounded, `solve_eq`) at their batches, f32 then f64,
+    each warmed; the launches by shape go into ``shapes``."""
+    what = {1: "single car M=1", 2: "consensus M=10 Nc=1", 4: "obstacle lin_cost_fn M=1"}
+    for k in (1, 2, 4):
+        out = {}
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype)[6:]
+            solver, data, B = baseline_config(k, dtype, device=dev)
+            stack = stack_varied(data, B, scale=0.02)
+            solver(stack)  # the warm-up
+            torch.cuda.synchronize()
+            before = chol_inv.SHAPES.copy()
+            X, U, info, dt, launches = timed_call(solver, stack, warm_solver=lambda _: None)
+            by_shape = shapes_since(before)
+            frac, _, _ = report(26, f"config {k} ({what[k]}) B={B} N=20 {name} AA", info, dt,
+                                launches, card)
+            spread = float((U[:, :, :1].amax(1) - U[:, :, :1].amin(1)).max())
+            print(f"    launches by shape: {fmt_shapes(by_shape)}"
+                  + (f"; consensus spread of u_0 over the particles {spread:.3e}"
+                     if k == 2 else ""))
+            for key, v in by_shape.items():
+                shapes.setdefault(key, []).append((f"26 config {k} {name}", v))
+            M = data.x0.shape[0]
+            require(torch.isfinite(X).all() and torch.isfinite(U).all()
+                    and U.shape == (B, M, 20, 2),
+                    f"[26] config {k} {name} output is not finite or has the wrong shape")
+            # unbounded: the arrow factor of `solve_eq`, no diagonal: K2 alone
+            require(only_launched(launches, ("inv_cholesky",)),
+                    f"[26] config {k} {name} launches {launches}: expected K2 only")
+            out[dtype] = (U, frac, spread, stack)
+        (U32, _, spread32, _), (U64, frac64, spread64, stack64) = \
+            out[torch.float32], out[torch.float64]
+        print(f"    config {k}: |U32 - U64|_inf = {(U32.double() - U64).abs().max().item():.3e}"
+              + (f"; spread f32 {spread32:.3e}, f64 {spread64:.3e} (gate 1e-6)" if k == 2
+                 else ""))
+        require(frac64 >= 0.95, f"[26] config {k} f64 converged_frac {frac64} < 0.95")
+        if k == 2:
+            require(spread64 <= 1e-6, f"[26] config 2 f64 consensus spread {spread64:.3e}")
+        # the first lanes on the card and on the CPU (the plain factors), f64
+        solver_c, data_c, _ = baseline_config(k, torch.float64, device="cpu")
+        _, U_c, info_c = solver_c(first_lanes(stack_varied(data_c, B, scale=0.02),
+                                              B_CPU_LANES))
+        _, U_g, info_g = baseline_config(k, torch.float64, device=dev)[0](
+            first_lanes(stack64, B_CPU_LANES))
+        err = float((U_g.cpu() - U_c).abs().max())
+        same = bool((info_g["iters"].cpu() == info_c["iters"]).all())
+        print(f"    config {k}, first {B_CPU_LANES} lanes f64, card against CPU: "
+              f"|dU|_inf = {err:.3e} (tol 1e-7), SCP counts equal {same}")
+        require(err <= 1e-7, f"[26] config {k}: card and CPU differ by {err:.3e}")
+
+
+def scalars(res, prefix=""):
+    """The numbers of an example's returned dict (arrays left out), flat."""
+    out = {}
+    for k, v in res.items():
+        if isinstance(v, dict):
+            out.update(scalars(v, f"{prefix}{k}."))
+        elif isinstance(v, (int, float)) and not isinstance(v, bool):
+            out[prefix + k] = v
+        elif isinstance(v, (list, tuple)) and all(isinstance(x, (int, float)) for x in v):
+            out[prefix + k] = list(v)
+    return out
+
+
+def phase_examples(dev, card, shapes):
+    """[27] the five example twins (`pmpc_tpu_torch.examples`) at their full
+    sizes on the card: each timed, its returned numbers printed, its own
+    checks gated (an AssertionError in its main), the launches by shape into
+    ``shapes``."""
+    import os
+
+    from pmpc_tpu_torch.examples import (arbitrary_constraints, batch_solver, custom_cost,
+                                         receding_horizon, simple_demo)
+
+    os.environ.pop("PMPC_EXAMPLES_FAST", None)
+    os.environ.pop("PMPC_RH_HOST", None)
+    for name, mod, kw in (("simple_demo", simple_demo, {}), ("batch_solver", batch_solver, {}),
+                          ("custom_cost", custom_cost, {}),
+                          ("receding_horizon", receding_horizon, dict(run_host=True)),
+                          ("arbitrary_constraints", arbitrary_constraints, {})):
+        print(f"[27] {name}:")
+        before = chol_inv.SHAPES.copy()
+        chol_inv.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            res = mod.main(device=dev, **kw)
+        except AssertionError as e:
+            require(False, f"[27] {name}: its own check failed: {e}")
+            continue
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        by_shape, nums = shapes_since(before), scalars(res)
+        for key, v in by_shape.items():
+            shapes.setdefault(key, []).append((f"27 {name}", v))
+        print(f"[27] {name} on the card: {dt:.1f} s; returned {json.dumps(nums)}; launches "
+              f"{dict(chol_inv.LAUNCHES)}, by shape {fmt_shapes(by_shape)} [{card}]")
+        require(all(np.isfinite(v).all() for v in nums.values()),
+                f"[27] {name}: a returned number is not finite")
+        require(sum(chol_inv.LAUNCHES.values()) > 0, f"[27] {name} launched no hand kernel")
+        if name == "batch_solver":
+            key = ("inv_cholesky_diag",) + K1_SERVE + (torch.float32,)
+            require(by_shape.get(key, 0) > 0,
+                    f"[27] batch_solver: no K1 at {K1_SERVE} f32 on the fused batch")
+        if name == "receding_horizon":
+            require(res["fused"]["err_final"] < res["fused"]["err_start"]
+                    and res["host"]["err_final"] < res["host"]["err_start"],
+                    "[27] receding_horizon: a closed loop did not reduce its tracking error")
+
+
+def phase_new_shapes(dev, card, shapes):
+    """Time every (kernel, batch, n, dtype) that phases 26 and 27 launched and
+    phase 3 did not time, beside its launches per call."""
+    new = sorted((k for k in shapes if k not in TIMED), key=str)
+    print(f"[26-27] {len(new)} launched shapes not timed in phase 3")
+    for key in new:
+        name, B, n, dtype = key
+        calls = "; ".join(f"{tag}: {v}" for tag, v in shapes[key])
+        time_shape(name, "_diag" in name, B, n, dtype, dev, card, {},
+                   note=f"; launches a call: {calls}")
 
 
 def shape_key(name, shape, dtype="float64"):
@@ -2200,6 +2378,14 @@ def main():
             serving[part] = phase(dev, card)
             print(f"    [25] {part} took {time.perf_counter() - t1:.1f} s")
         print(f"    [25] took {time.perf_counter() - t0:.1f} s")
+        phase_launched_shapes(dev)
+        t0, new_shapes = time.perf_counter(), {}
+        phase_baseline_configs(dev, card, new_shapes)
+        print(f"    [26] took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_examples(dev, card, new_shapes)
+        print(f"    [27] took {time.perf_counter() - t0:.1f} s")
+        phase_new_shapes(dev, card, new_shapes)
         phase_launched_shapes(dev)
     # the state-box phase launches K2 twice per IPM iteration, once at each shape
     wide, cone, cvar_shape, smooth_shape, served_cone, shard_k2 = \

@@ -14,7 +14,8 @@ the per-iteration dispatcher `solvers.dispatch.affine_solve_np`,
 kernel and runs a shape once), ``sensitivity`` (feedback gains by the
 implicit function theorem, `torch.func`) and ``native`` (the ctypes binding
 of ``native/``'s host library). ``solve_problems`` and ``remote`` load on
-first use.
+first use. ``pmpc_tpu_torch.examples`` holds twins of the JAX package's
+example scripts (``python3 -m pmpc_tpu_torch.examples.simple_demo``).
 
 Quick start (a torch step function f(x, u) -> x_next; every solve runs on
 ``device``, the card when None)::

@@ -10,7 +10,10 @@ Spawns ``--nproc`` ranks (one process each, `torch.distributed` over
 case of ``--cases`` (`CASES`, f64) through `make_sharded_solver`, time one
 call (after a warm-up on the card), count the hand kernels each rank
 launched by shape, and gather the result (`distributed.process_allgather`).
-Rank 0 holds it against the unsharded solver on the full batch (U and X to
+On the card each rank then holds every (kernel, batch, n, dtype) it
+launched against the kernel's plain version on seeded SPD blocks (to
+``KERNEL_TOL`` of the plain result's largest entry). Rank 0 holds the
+results against the unsharded solver on the full batch (U and X to
 ``--tol``, equal SCP iteration counts), prints one line
 ``PARALLEL_CHECK {json}`` and, with ``--out``, writes the gathered arrays to
 an ``.npz`` (keys ``"<mesh>/<case>/<U|X|iters>"``); the command exits 1 when
@@ -44,6 +47,9 @@ import torch
 CASES = ("flagship", "unbounded_batch", "unbounded", "bounded", "soc", "riccati",
          "distributed")
 SMALL = dict(B=4, M=4, N=8)
+# a kernel against its plain version: the largest error relative to the
+# plain result's largest entry (chip_smoke.py's bounds)
+KERNEL_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 
 
 def _free_port() -> int:
@@ -82,6 +88,29 @@ def case_setup(case: str, device, B: int = 8, dtype=torch.float64):
     return kw, build_scp_solver(dubins, **kw), data, case != "unbounded_batch"
 
 
+def hold_kernels(shapes, dev) -> dict:
+    """Each launched (kernel name, batch, n, dtype) of ``shapes`` against its
+    plain version on seeded SPD blocks G G'/n + I (weights in [0.1, 1.1)
+    where the kernel adds a diagonal) on ``dev``: {"<name> (batch, n, n)
+    <dtype>": [relative error, within KERNEL_TOL]}."""
+    from ..ops import chol_inv
+
+    out = {}
+    for name, B, n, dtype in sorted(shapes, key=str):
+        g = torch.Generator().manual_seed(n)
+        G = torch.randn(B, n, n, generator=g, dtype=torch.float64) / n ** 0.5
+        A = (G @ G.mT + torch.eye(n, dtype=torch.float64)).to(dev, dtype)
+        w = (torch.rand(B, n, generator=g, dtype=torch.float64) + 0.1).to(dev, dtype)
+        if "_diag" in name:
+            got = chol_inv.inv_cholesky_diag(A, w, 1e-7)
+            ref = chol_inv.inv_cholesky_diag_plain(A, w, 1e-7)
+        else:
+            got, ref = chol_inv.inv_cholesky(A, 1e-7), chol_inv.inv_cholesky_plain(A, 1e-7)
+        err = float((got - ref).abs().max() / ref.abs().max())
+        out[f"{name} ({B}, {n}, {n}) {str(dtype)[6:]}"] = [err, err <= KERNEL_TOL[dtype]]
+    return out
+
+
 def _rank_main(a) -> None:
     import torch.distributed as dist
 
@@ -103,7 +132,7 @@ def _rank_main(a) -> None:
     init_distributed(f"tcp://localhost:{a.port}", a.nproc, a.rank, backend=a.backend)
     cases = a.cases.split(",")
     setups = {c: case_setup(c, dev, a.B) for c in cases}
-    out, arrays, refs = {}, {}, {}
+    out, arrays, refs, launched = {}, {}, {}, set()
     with matmul_precision_scope():
         for name in a.meshes.split(","):
             nb, npart = (int(v) for v in name.split("x"))
@@ -139,8 +168,10 @@ def _rank_main(a) -> None:
                 if dev.type == "cuda":
                     torch.cuda.synchronize()
                 ms = (time.perf_counter() - t0) * 1e3
+                new_shapes = chol_inv.SHAPES - before
+                launched |= set(new_shapes)
                 shapes = {f"{k[0]} ({k[1]}, {k[2]}, {k[2]}) {str(k[3])[6:]}": v
-                          for k, v in (chol_inv.SHAPES - before).items()}
+                          for k, v in new_shapes.items()}
                 sp = shard_p and npart > 1
                 got = dict(U=process_allgather(m, U, particle_axis=sp),
                            X=process_allgather(m, X, particle_axis=sp),
@@ -163,12 +194,16 @@ def _rank_main(a) -> None:
                     launches_per_rank=[e["launches"] for e in every],
                     ok=bool(err <= a.tol and same and np.isfinite(err)))
                 arrays.update({f"{name}/{case}/{k}": v.cpu().numpy() for k, v in got.items()})
+        held = hold_kernels(launched, dev) if dev.type == "cuda" else {}
+    every = [None] * a.nproc
+    dist.all_gather_object(every, held)
     if a.rank == 0:
         if a.out:
             np.savez(a.out, **arrays)
         print("PARALLEL_CHECK " + json.dumps(dict(
             nproc=a.nproc, backend=a.backend, device=str(dev), B=a.B, tol=a.tol,
-            meshes=out)), flush=True)
+            meshes=out, kernels_vs_plain=every,
+            kernels_ok=all(ok for r in every for _, ok in r.values()))), flush=True)
     dist.barrier()
     dist.destroy_process_group()
 
@@ -239,7 +274,8 @@ def main(argv=None) -> int:
         return 1
     report.pop("arrays", None)
     print("PARALLEL_CHECK " + json.dumps(report))
-    return 0 if all(c["ok"] for m in report["meshes"].values() for c in m.values()) else 1
+    return 0 if report["kernels_ok"] and all(
+        c["ok"] for m in report["meshes"].values() for c in m.values()) else 1
 
 
 if __name__ == "__main__":

@@ -12,7 +12,7 @@ group (`particles`).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -57,30 +57,42 @@ def coords(mesh):
             mesh.size(0), mesh.size(1))
 
 
-def _cut(x: torch.Tensor, dim: int, i: int, n: int) -> torch.Tensor:
-    size = x.shape[dim]
-    if size % n:
-        raise ValueError(f"axis of {size} does not split over {n} ranks")
-    return x.narrow(dim, i * (size // n), size // n)
+class DataSharding(NamedTuple):
+    """The placement of (B, M, ...) arrays on a ("batch", "particle") mesh:
+    leading axis i is cut over the mesh dimension ``axes[i]``, the twin of
+    the JAX package's ``NamedSharding(mesh, P(*axes))``. A leaf with fewer
+    than two dims is not such an array and is replicated."""
+
+    mesh: Any
+    axes: Tuple[str, ...]
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``x`` (a view; replicated leaves whole)."""
+        if x.ndim < 2:
+            return x
+        for dim, name in enumerate(self.axes):
+            n = self.mesh.size(self.mesh.mesh_dim_names.index(name))
+            size = x.shape[dim]
+            if size % n:
+                raise ValueError(f"axis of {size} does not split over {n} ranks")
+            i = self.mesh.get_local_rank(name)
+            x = x.narrow(dim, i * (size // n), size // n)
+        return x
+
+
+def data_sharding(mesh, shard_particles: bool = True) -> DataSharding:
+    """The placement of (B, M, ...) problem arrays: B over "batch" and, with
+    ``shard_particles``, M over "particle"."""
+    return DataSharding(mesh, ("batch", "particle") if shard_particles else ("batch",))
 
 
 def shard_batched_data(data: SCPData, mesh, shard_particles: bool = True) -> SCPData:
     """This rank's shard of a full (B, M, ...) batch, on the rank's device
-    (`rank_device`): B cut by the batch coordinate and,
-    with ``shard_particles``, M by the particle coordinate (M % n_particle
-    == 0). Leaves with fewer than 2 dims are not a (B, M, ...) batch and are
-    replicated, as the JAX function replicates them; without
-    ``shard_particles`` the ranks of a particle group hold the same shard."""
-    b, p, nb, npart = coords(mesh)
-    dev = rank_device(mesh)
-
-    def place(x):
-        if x is None:
-            return None
-        if x.ndim >= 2:
-            x = _cut(x, 0, b, nb)
-            if shard_particles:
-                x = _cut(x, 1, p, npart)
-        return x.to(dev)
-
-    return SCPData(*(place(getattr(data, f)) for f in SCPData._fields))
+    (`rank_device`), as `data_sharding` places it: B cut by the batch
+    coordinate and, with ``shard_particles``, M by the particle coordinate
+    (M % n_particle == 0). Leaves with fewer than 2 dims are replicated, as
+    the JAX function replicates them; without ``shard_particles`` the ranks
+    of a particle group hold the same shard."""
+    spec, dev = data_sharding(mesh, shard_particles), rank_device(mesh)
+    return SCPData(*(None if getattr(data, f) is None else spec.local(getattr(data, f)).to(dev)
+                     for f in SCPData._fields))

@@ -259,10 +259,14 @@ def cone_qp_solve(prob: ConeLP, iters: int = 35, tol_exp: int = -8, kappa: float
 
     Every lane runs the JAX while-loop's iterations: a lane whose condition
     (not done, fewer than ``iters`` steps) turned false keeps its whole
-    state, so each lane's count equals the JAX lane's."""
-    if debug_trace:
-        raise NotImplementedError(
-            "cone_qp_solve(debug_trace=True), the per-iteration trace, is not ported")
+    state, so each lane's count equals the JAX lane's.
+
+    ``debug_trace=True`` runs every lane for exactly ``iters`` steps (the
+    JAX fixed-length scan: a lane that is done keeps its state, and its
+    entries are still computed on that frozen state) and adds
+    ``stats["trace"]``: mu, a, a_aff, sigma, rp, rd and bad, each (B,
+    iters), filled on the device and read by no host sync inside the
+    loop."""
     dtype, dev = prob.q.dtype, prob.q.device
     B, nv = prob.q.shape
     ml = prob.hl.shape[-1]
@@ -480,8 +484,10 @@ def cone_qp_solve(prob: ConeLP, iters: int = 35, tol_exp: int = -8, kappa: float
         steps_o = nsteps + torch.where(done, 0, 1).to(nsteps.dtype)
         badc_o = torch.where(done, badc, torch.where(step_bad, badc + 1, 0)).to(badc.dtype)
         give_up = badc_o >= 4
+        trace = dict(mu=mu_n, a=a, a_aff=a_a, sigma=sigma, rp=rp_inf, rd=rd_inf,
+                     bad=step_bad)
         return (v_o, sl_o, zl_o, sq_o, zq_o, done | now_done | give_up, ok | now_done,
-                mu_o, steps_o, badc_o)
+                mu_o, steps_o, badc_o), trace
 
     v0, sl0, zl0, sq0, zq0 = init() if warm is None else init_warm(warm)
     false = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -489,15 +495,27 @@ def cone_qp_solve(prob: ConeLP, iters: int = 35, tol_exp: int = -8, kappa: float
              torch.ones(B, dtype=dtype, device=dev),
              torch.zeros(B, dtype=torch.int32, device=dev),
              torch.zeros(B, dtype=torch.int32, device=dev))
-    # `jax.vmap(lax.while_loop)`: the body runs while ANY lane's condition
-    # holds, and a lane whose own condition is false keeps its whole carry
-    for n in range(iters):
-        active = ~carry[5] & (carry[8] < iters)
-        if n % CHECK_EVERY == 0 and not bool(active.any()):
-            break
-        new = body(carry)
-        carry = tuple(torch.where(_lane(active, x.ndim - 1), xn, x)
-                      for xn, x in zip(new, carry))
+    if debug_trace:
+        # the fixed-length `lax.scan`: the body alone freezes finished lanes
+        tr = {k: torch.empty((B, iters), dtype=torch.bool if k == "bad" else dtype,
+                             device=dev)
+              for k in ("mu", "a", "a_aff", "sigma", "rp", "rd", "bad")}
+        for n in range(iters):
+            carry, step_tr = body(carry)
+            for k, x in step_tr.items():
+                tr[k][:, n] = x
+    else:
+        # `jax.vmap(lax.while_loop)`: the body runs while ANY lane's condition
+        # holds, and a lane whose own condition is false keeps its whole carry
+        for n in range(iters):
+            active = ~carry[5] & (carry[8] < iters)
+            if n % CHECK_EVERY == 0 and not bool(active.any()):
+                break
+            new = body(carry)[0]
+            carry = tuple(torch.where(_lane(active, x.ndim - 1), xn, x)
+                          for xn, x in zip(new, carry))
     v, sl, zl, sq, zq, done, ok, mu, nsteps, _ = carry
     stats = dict(mu=mu, iters=nsteps, converged=ok)
+    if debug_trace:
+        stats["trace"] = tr
     return v, (sl, sq), (zl, zq), stats

@@ -265,6 +265,20 @@ def arrow_apply(F: ArrowFactors, bc, bf):
     return uc, uf
 
 
+def solve_arrow(Hcc, Hcf, Hff, qc, qf, jitter: float = 0.0):
+    """Solve the arrow-structured SPD system
+
+        [ Hcc     Hcf_1 ... Hcf_M ] [uc  ]   [ -qc  ]
+        [ Hcf_1'  Hff_1           ] [uf_1] = [ -qf_1]
+        [  ...          ...       ] [ ...]   [  ... ]
+
+    by the per-particle factors and the consensus Schur complement
+    (`arrow_factor`, then `arrow_apply`). Hcc (..., nc, nc), Hcf (..., M,
+    nc, nf), Hff (..., M, nf, nf), qc (..., nc), qf (..., M, nf); returns
+    (uc (..., nc), uf (..., M, nf))."""
+    return arrow_apply(arrow_factor(Hcc, Hcf, Hff, jitter=jitter), -qc, -qf)
+
+
 def solve_eq(cqp: CondensedQP, refine: int = 2):
     """Solve the unconstrained condensed QPs. Returns (uc (B, nc), uf (B, M, nf)).
 

@@ -126,6 +126,17 @@ def numpy_dtype(d) -> np.dtype:
     return np.dtype(d)
 
 
+def to_numpy_f64(x):
+    """A float64 numpy array of ``x`` (a tensor on any device is read back
+    to the host first); python scalars pass through."""
+    if isinstance(x, (float, int)):
+        return x
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+    arr = np.asarray(x)
+    return arr if arr.dtype == np.float64 else arr.astype(np.float64)
+
+
 def to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
     """Read tensors of one device back to the host in ONE transfer: flattened
     into one vector of the first tensor's floating dtype, copied once, split

@@ -147,11 +147,48 @@ def test_warm_start_from_a_previous_solve():
     assert sum(its_warm) < sum(its_cold)
 
 
+def _hold_trace(p_t, prog, kw, rel=None):
+    """``debug_trace=True``: the fixed-length run against the JAX scan, lane by
+    lane, key for key and entry for entry (the entries after a lane is done
+    included: both compute them on the frozen state). mu, rp and rd to 1e-9
+    times (1 + the key's largest entry); the step lengths a, a_aff and sigma
+    to 1e-3: they are in [0, 1], and in the last steps and on a converged
+    lane's frozen point (mu below its tolerance) they are ratios of
+    quantities at the rounding level, where 1e-4 is too tight; bad equal.
+    With ``rel``, mu, rp and rd are held entry for entry to ``rel`` times
+    the JAX entry (plus 1e-11) instead. The returned point and counts equal
+    the early-exit solve's exactly."""
+    v, _, _, st = tcone.cone_qp_solve(p_t, debug_trace=True, **kw)
+    v0, _, _, st0 = tcone.cone_qp_solve(p_t, **kw)
+    assert torch.equal(v, v0) and torch.equal(st["iters"], st0["iters"])
+    tr = st["trace"]
+    assert set(tr) == {"mu", "a", "a_aff", "sigma", "rp", "rd", "bad"}
+    for b in range(p_t.q.shape[0]):
+        stj = jcone.cone_qp_solve(jcone.ConeLP(*(jnp.asarray(prog[f][b]) for f in FIELDS)),
+                                  debug_trace=True, **kw)[3]
+        assert set(stj["trace"]) == set(tr) and int(stj["iters"]) == int(st["iters"][b])
+        for k, xj in stj["trace"].items():
+            xj, x = np.asarray(xj), tr[k][b].numpy()
+            assert x.shape == xj.shape == (kw["iters"],), k
+            if k == "bad":
+                assert (x == xj).all()
+                continue
+            if k in ("a", "a_aff", "sigma"):
+                tol = 1e-3
+            elif rel is None:
+                tol = 1e-9 * (1 + np.abs(xj).max())
+            else:
+                tol = rel * np.abs(xj) + 1e-11
+            assert (np.abs(x - xj) <= tol).all(), (b, k, np.abs(x - xj).max())
+    return st
+
+
 def test_options():
     prog = _random_program(41, B=2, nv=6, ml=4, c=2, p=3)
     p_t = tcone.ConeLP(*(tt(prog[f]) for f in FIELDS))
-    with pytest.raises(NotImplementedError, match="debug_trace"):
-        tcone.cone_qp_solve(p_t, debug_trace=True)
+    # the trace runs past convergence: iters 30 > the lanes' 8
+    st = _hold_trace(p_t, prog, dict(KW, iters=30))
+    assert (st["iters"] < 30).all() and st["converged"].all()
     # a per-lane dynamic tolerance loosens lane 1 only
     tight = tcone.cone_qp_solve(p_t, **KW)[3]["iters"]
     per_lane = tcone.cone_qp_solve(p_t, tol_dynamic=torch.tensor([0.0, 1e-3]), **KW)[3]["iters"]
@@ -162,3 +199,20 @@ def test_options():
     assert (it, te, ka, tol_dyn, warm) == (100, -8, 1e-10, 1e-5, None) and tol_eff == 1e-5
     assert tcone.cone_host_setup({}, np.float32, "k", "w")[:3] == (35, -5, 1e-7)
     assert tcone.cone_host_stats(dict(mu=1.0, iters=7, converged=False), 1e-8)["ipm_failed"]
+
+
+@pytest.mark.parametrize("case", ["lanes_stop_apart", "lp_only"])
+def test_debug_trace(case):
+    """The trace on a batch whose lanes converge at different counts (a done
+    lane's entries run on while the others iterate), and on a program with no
+    cones (the neutral dummy cone is traced like a real one). There lane 1's
+    corrector step at iteration 4 is a ratio against a slack step that
+    cancels, so the packages' later mu, rp and rd part at 1e-9 of the
+    largest entry: that case holds them to 1e-5 of each entry."""
+    prog = _random_program(11, B=3, nv=9, ml=6, c=4, p=3)
+    if case == "lp_only":
+        prog["Gq"], prog["hq"] = prog["Gq"][:, :0], prog["hq"][:, :0]
+    p_t = tcone.ConeLP(*(tt(prog[f]) for f in FIELDS))
+    st = _hold_trace(p_t, prog, dict(KW, iters=25), rel=1e-5 if case == "lp_only" else None)
+    if case == "lanes_stop_apart":
+        assert len(set(st["iters"].tolist())) > 1

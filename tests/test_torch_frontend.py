@@ -221,3 +221,24 @@ def test_experimental_shim_and_package_exports(monkeypatch):
         pmpc_tpu_torch.solve(fn, Q, R, x0, max_it=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pmpc_tpu_torch.make_f_fx_fu_fn(dubins)
+
+
+@pytest.mark.parametrize("value", ["float", "int", "f64", "f32", "list", "tensor32",
+                                   "tensor64"])
+def test_to_numpy_f64_matches_jax(value):
+    """`utils.to_numpy_f64` against the JAX package's: python scalars pass
+    through, an f64 array comes back as itself, anything else as an f64 copy
+    (a tensor read to the host first)."""
+    a = np.random.default_rng(3).normal(size=(2, 3))
+    x = {"float": 2.5, "int": 7, "f64": a, "f32": a.astype(np.float32), "list": a.tolist(),
+         "tensor32": torch.from_numpy(a.astype(np.float32)),
+         "tensor64": torch.from_numpy(a)}[value]
+    got = tutils.to_numpy_f64(x)
+    want = jutils.to_numpy_f64(x.numpy() if isinstance(x, torch.Tensor) else x)
+    if value in ("float", "int"):
+        assert got is x and want is x
+        return
+    assert isinstance(got, np.ndarray) and got.dtype == np.float64
+    np.testing.assert_array_equal(got, want)
+    if value == "f64":
+        assert got is x

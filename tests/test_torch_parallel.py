@@ -117,3 +117,72 @@ def test_make_mesh_defaults_to_the_card():
         np.testing.assert_array_equal(shard.x0.numpy(), data.x0.numpy())
     finally:
         dist.destroy_process_group()
+
+
+class _RankMesh:
+    """The parts of a `DeviceMesh` that the placement reads, for one rank of
+    an nb x npart mesh on the CPU: no process group needed."""
+
+    mesh_dim_names = ("batch", "particle")
+    device_type = "cpu"
+
+    def __init__(self, nb, npart, b, p):
+        self._size, self._rank = (nb, npart), {"batch": b, "particle": p}
+
+    def size(self, dim):
+        return self._size[dim]
+
+    def get_local_rank(self, name):
+        return self._rank[name]
+
+
+@pytest.mark.parametrize("shard_particles", [True, False])
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_data_sharding_names_what_shard_batched_data_cuts(mesh, shard_particles):
+    """`data_sharding` names the JAX function's partition (its spec's axes),
+    and on every rank of the mesh `shard_batched_data` cuts each (B, M, ...)
+    leaf to the block those axes give, computed here with numpy; leaves
+    with fewer than 2 dims stay whole."""
+    import jax
+    from jax.sharding import Mesh
+
+    from pmpc_tpu.parallel import mesh as jmesh
+    from pmpc_tpu_torch.parallel.mesh import data_sharding
+    from pmpc_tpu_torch.parallel import shard_batched_data
+
+    j1 = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("batch", "particle"))
+    j_axes = tuple(jmesh.data_sharding(j1, shard_particles).spec)
+    _, _, data, _ = check.case_setup("bounded", "cpu")
+    data = data._replace(params=torch.arange(3.0))  # a 1-D leaf: replicated
+    nb, npart = MESHES[mesh]
+    B, Mp = data.x0.shape[:2]
+    for b in range(nb):
+        for p in range(npart):
+            m = _RankMesh(nb, npart, b, p)
+            spec = data_sharding(m, shard_particles)
+            assert spec.axes == j_axes and spec.mesh is m
+            shard = shard_batched_data(data, m, shard_particles=shard_particles)
+            rows = slice(b * B // nb, (b + 1) * B // nb)
+            cols = slice(p * Mp // npart, (p + 1) * Mp // npart) if shard_particles \
+                else slice(None)
+            for f in data._fields:
+                full, got = getattr(data, f), getattr(shard, f)
+                if full is None:
+                    assert got is None
+                    continue
+                want = full.numpy() if full.ndim < 2 else full.numpy()[rows][:, cols]
+                np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_hold_kernels_reports_each_launched_shape():
+    """`check.hold_kernels`, which each rank runs on the card after its
+    meshes: one entry per launched (kernel, batch, n, dtype), its error
+    against the plain version and whether that is within `KERNEL_TOL`. On
+    the CPU both sides are the plain version: error 0."""
+    shapes = {("inv_cholesky_diag", 64, 50, torch.float64), ("inv_cholesky", 2, 10, torch.float64),
+              ("inv_cholesky_big", 3, 70, torch.float32)}
+    held = check.hold_kernels(shapes, "cpu")
+    assert sorted(held) == ["inv_cholesky (2, 10, 10) float64",
+                            "inv_cholesky_big (3, 70, 70) float32",
+                            "inv_cholesky_diag (64, 50, 50) float64"]
+    assert all(err == 0.0 and ok for err, ok in held.values())

@@ -156,3 +156,44 @@ def test_solve_eq_and_arrow_branches_match_jax(M, Nc):
         torch.from_numpy(bc), torch.from_numpy(bf))
     _close(yc, yc_ref)
     _close(yf, yf_ref)
+
+
+def _arrow_system(seed, M, nc, nf):
+    """A seeded arrow system, numpy f64: SPD per-particle blocks and a
+    consensus block large enough that the whole matrix is SPD."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(M, nf, nf))
+    Hff = A @ np.swapaxes(A, -1, -2) / max(nf, 1) + np.eye(nf)
+    Hcf = 0.3 * rng.normal(size=(M, nc, nf))
+    C = rng.normal(size=(nc, nc))
+    Hcc = C @ C.T / max(nc, 1) + (1.0 + 0.1 * M * nf) * np.eye(nc)
+    return Hcc, Hcf, Hff, rng.normal(size=nc), rng.normal(size=(M, nf))
+
+
+@pytest.mark.parametrize("jitter", [0.0, 1e-3])
+@pytest.mark.parametrize("M,nc,nf", [(4, 3, 7), (1, 0, 9), (3, 5, 0)])
+def test_solve_arrow_matches_jax(M, nc, nf, jitter):
+    """`solve_arrow` on one system against the JAX function (1e-10), then on
+    a (2,)-batch of systems (leading axes) lane by lane, and the solution
+    against numpy's dense solve of the assembled matrix."""
+    sys_ = _arrow_system(7, M, nc, nf)
+    uc_j, uf_j = jred.solve_arrow(*map(jnp.asarray, sys_), jitter=jitter)
+    uc, uf = tred.solve_arrow(*map(torch.from_numpy, sys_), jitter=jitter)
+    assert uc.shape == (nc,) and uf.shape == (M, nf)
+    _close(uc, uc_j)
+    _close(uf, uf_j)
+    Hcc, Hcf, Hff, qc, qf = sys_
+    K = np.zeros((nc + M * nf,) * 2)
+    K[:nc, :nc] = Hcc
+    for i in range(M):
+        f = slice(nc + i * nf, nc + (i + 1) * nf)
+        K[:nc, f], K[f, :nc], K[f, f] = Hcf[i], Hcf[i].T, Hff[i]
+    z = np.linalg.solve(K + jitter * np.eye(len(K)), -np.concatenate([qc, qf.reshape(-1)]))
+    _close(np.concatenate([uc.numpy(), uf.numpy().reshape(-1)]), z, 1e-9)
+    two = [sys_, _arrow_system(8, M, nc, nf)]
+    ucb, ufb = tred.solve_arrow(*(torch.from_numpy(np.stack(a)) for a in zip(*two)),
+                                jitter=jitter)
+    for b, s in enumerate(two):
+        ucj, ufj = jred.solve_arrow(*map(jnp.asarray, s), jitter=jitter)
+        _close(ucb[b], ucj)
+        _close(ufb[b], ufj)

@@ -571,7 +571,11 @@ def test_port_imports_no_jax():
             "pmpc_tpu_torch.native", "pmpc_tpu_torch.ipm_crawl", "pmpc_tpu_torch.stream",
             "pmpc_tpu_torch.particles", "pmpc_tpu_torch.solvers.priccati",
             "pmpc_tpu_torch.parallel.mesh", "pmpc_tpu_torch.parallel.sharded",
-            "pmpc_tpu_torch.parallel.distributed", "pmpc_tpu_torch.parallel.check"} <= set(mods)
+            "pmpc_tpu_torch.parallel.distributed", "pmpc_tpu_torch.parallel.check",
+            "pmpc_tpu_torch.examples._common", "pmpc_tpu_torch.examples.simple_demo",
+            "pmpc_tpu_torch.examples.batch_solver", "pmpc_tpu_torch.examples.custom_cost",
+            "pmpc_tpu_torch.examples.receding_horizon",
+            "pmpc_tpu_torch.examples.arbitrary_constraints"} <= set(mods)
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
