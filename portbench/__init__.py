@@ -1,0 +1,2 @@
+"""The benchmark of ``pmpc_tpu_torch`` on one NVIDIA H100: ``python3
+portbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>``."""
