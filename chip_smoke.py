@@ -1954,8 +1954,8 @@ def phase_stream(dev, card):
     slowest; reported). Returns the stream call's K1 launches at
     (B_STREAM, 40, 40)."""
     from pmpc_tpu_torch.flagship import _instance
-    from pmpc_tpu_torch.particles import HOST_READS
     from pmpc_tpu_torch.stream import _stack, solve_stream
+    from pmpc_tpu_torch.tracing import COUNTS
 
     f64 = torch.float64
     solver = pmpc_tpu_torch.build_scp_solver(
@@ -1971,11 +1971,11 @@ def phase_stream(dev, card):
     torch.cuda.synchronize()
 
     def run_to_max(d):
-        r0, t0 = HOST_READS[0], time.perf_counter()
+        r0, t0 = COUNTS["host_read"], time.perf_counter()
         _, U, info = solver(d)
         torch.cuda.synchronize()
         return (U[:, 0].cpu().numpy(), info["iters"].cpu().numpy(),
-                time.perf_counter() - t0, HOST_READS[0] - r0 + 1)
+                time.perf_counter() - t0, COUNTS["host_read"] - r0 + 1)
 
     st = {}
     chol_inv.reset_launch_counts()
@@ -2032,9 +2032,9 @@ def phase_stream(dev, card):
                   reg_u=0.1, max_it=IT_STREAM, res_tol=TOL_STREAM,
                   solver_settings=dict(dtype=np.float64)) for i in range(S_STREAM)]
     pmpc_tpu_torch.solve_problems([dict(p, max_it=1) for p in probs], fused=True, device=dev)
-    r0 = HOST_READS[0]
+    r0 = COUNTS["host_read"]
     out_f, t_fused, launches_f, _ = serve_call(probs, dev, fused=True)
-    reads_fused = HOST_READS[0] - r0 + 1
+    reads_fused = COUNTS["host_read"] - r0 + 1
     U_f, conv_f, _ = stack_out(out_f)
     it_f = out_f[0][2]["iters"]
     idle_fused = 1.0 - its.sum() / (S_STREAM * it_f)

@@ -22,6 +22,8 @@ from typing import Optional
 
 import torch
 
+from .tracing import COUNTS, span
+
 _GROUP = None
 
 
@@ -83,16 +85,15 @@ def pmean(x: torch.Tensor, dims) -> torch.Tensor:
     return psum(x.sum(dims)) / (n * group_size())
 
 
-HOST_READS = [0]  # loop tests so far (`pany` calls): each reads the host once
-
-
 def pany(x: torch.Tensor) -> bool:
     """Host read (a loop test of the SCP loop or an IPM): does any entry
-    hold on any rank of the group. Counted in ``HOST_READS[0]``."""
-    HOST_READS[0] += 1
-    if _GROUP is None:
-        return bool(x.any())
-    return bool(pmax(x.any().reshape(1)).item())
+    hold on any rank of the group. Counted in
+    ``tracing.COUNTS["host_read"]`` and recorded as the span ``host_read``."""
+    COUNTS["host_read"] += 1
+    with span("host_read"):
+        if _GROUP is None:
+            return bool(x.any())
+        return bool(pmax(x.any().reshape(1)).item())
 
 
 def pfirst(x: torch.Tensor) -> torch.Tensor:

@@ -48,6 +48,7 @@ import torch
 from ..ops.linalg import spd_apply, spd_factor
 from ..particles import group as particle_group, pany, pfirst, pmax, pmean, psum, \
     split_max, split_min, split_sum
+from ..tracing import span
 from ..utils import default_device, full_matmul_precision, lane_where, to_host
 from .coneipm import _soc_W, _soc_inv, _soc_prod, _soc_shift, _soc_step_len
 from .reduced import ArrowFactors, CondensedQP, H_apply_factored, arrow_apply, \
@@ -334,13 +335,14 @@ def ipm_core(
 
     def grad_lagrangian(uc, uf, lam, zq):
         """(gc, gf) = Hz + q + G'lam (+ the cone duals), Hz in factored form."""
-        Hc, Hf = H_apply_factored(cqp, uc, uf)
-        dc, df = gT_dot(lam)
-        gc, gf = Hc + cqp.qc + dc, Hf + cqp.qf + df
-        if has_soc:  # the cone Jacobian G_k' z_k = -S_k' z_k[1:]
-            zc, zf = cone_scatter(zq)
-            gc, gf = gc - zc, gf - zf
-        return gc, gf
+        with span("ipm.residual"):
+            Hc, Hf = H_apply_factored(cqp, uc, uf)
+            dc, df = gT_dot(lam)
+            gc, gf = Hc + cqp.qc + dc, Hf + cqp.qf + df
+            if has_soc:  # the cone Jacobian G_k' z_k = -S_k' z_k[1:]
+                zc, zf = cone_scatter(zq)
+                gc, gf = gc - zc, gf - zf
+            return gc, gf
 
     w_max = 1e14 if dtype == torch.float64 else 1e7
 
@@ -357,8 +359,9 @@ def ipm_core(
         if has_u and not has_x and not has_soc:
             # box-only fast path: K = H + diag(w), the diagonal folded into
             # the factor kernel, so the Newton matrix never materializes
-            F = arrow_factor_diag(cqp.Hcc, cqp.Hcf, cqp.Hff, wc_d, wf_d,
-                                  jitter=kappa)
+            with span("ipm.factor"):
+                F = arrow_factor_diag(cqp.Hcc, cqp.Hcf, cqp.Hff, wc_d, wf_d,
+                                      jitter=kappa)
         else:
             wx = (w[:, o_xlo:o_xhi] + w[:, o_xhi:o_ex]).reshape(B, M, NX) \
                 if has_x else None
@@ -385,21 +388,23 @@ def ipm_core(
                 if nf:
                     Kff = Kff + boost[:, None, None, None] * torch.eye(nf, dtype=dtype, device=dev)
             K = (Kcc, Kcf, Kff)
-            F = arrow_factor(Kcc, Kcf, Kff, jitter=kappa)
+            with span("ipm.factor"):
+                F = arrow_factor(Kcc, Kcf, Kff, jitter=kappa)
 
         def base_solve(bc_, bf_, F_=F, K_=K):
             """Arrow solve; with cones one round of iterative refinement (the
             recovered cone dual multiplies the solve error by W^-2, ~1/mu
             near convergence). ``F_``/``K_`` with an inserted axis take
             several right-hand sides, (B, k, nc) and (B, k, M, nf)."""
-            duc_, duf_ = arrow_apply(F_, bc_, bf_)
-            if has_soc:
-                Kcc_, Kcf_, Kff_ = K_
-                oc = _mv(Kcc_, duc_) + psum(_mv(Kcf_, duf_).sum(-2))
-                of = _mv(Kcf_.mT, duc_[..., None, :]) + _mv(Kff_, duf_)
-                ddc, ddf = arrow_apply(F_, bc_ - oc, bf_ - of)
-                duc_, duf_ = duc_ + ddc, duf_ + ddf
-            return duc_, duf_
+            with span("ipm.solve"):
+                duc_, duf_ = arrow_apply(F_, bc_, bf_)
+                if has_soc:
+                    Kcc_, Kcf_, Kff_ = K_
+                    oc = _mv(Kcc_, duc_) + psum(_mv(Kcf_, duf_).sum(-2))
+                    of = _mv(Kcf_.mT, duc_[..., None, :]) + _mv(Kff_, duf_)
+                    ddc, ddf = arrow_apply(F_, bc_ - oc, bf_ - of)
+                    duc_, duf_ = duc_ + ddc, duf_ + ddf
+                return duc_, duf_
 
         if has_ex:
             # augmented bordered solve: the l dense rows stay explicit, their
@@ -633,8 +638,9 @@ def ipm_core(
         active = ~state.done & (state.iters < iters)
         if not pany(active):
             break
-        new = body(state)
-        state = IPMState(*(lane_where(active, n, o) for n, o in zip(new, state)))
+        with span("ipm.iter"):
+            new = body(state)
+            state = IPMState(*(lane_where(active, n, o) for n, o in zip(new, state)))
     if mu_target > 0:
         # finish with pure centering steps: Mehrotra's second-order
         # correction hunts mu -> 0 and wobbles around the mu_target point

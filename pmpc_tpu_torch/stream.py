@@ -25,8 +25,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .particles import HOST_READS
 from .torch_scp import SCPData
+from .tracing import COUNTS
 from .utils import to_host
 
 
@@ -94,7 +94,7 @@ def solve_stream(
     if S == 0:
         return []
     B = min(B, S)
-    reads0 = HOST_READS[0]
+    reads0 = COUNTS["host_read"]
     pool = _stack(stream)
     dev = pool.x0.device
     data = _rows(pool, torch.arange(B, device=dev))
@@ -137,7 +137,7 @@ def solve_stream(
             f"solve_stream: only {n_done}/{S} problems finished (max_rounds={max_rounds})")
     rX, rU, rmeta = to_host([rX, rU, rmeta])
     if stats is not None:
-        stats.update(rounds=rounds, host_reads=rounds + 1 + HOST_READS[0] - reads0,
+        stats.update(rounds=rounds, host_reads=rounds + 1 + COUNTS["host_read"] - reads0,
                      lane_slots=B * chunk_it * rounds)
     return [(rX[i], rU[i], dict(iters=int(rmeta[i, 0]), resid=float(rmeta[i, 1]),
                                 converged=bool(rmeta[i, 2] > 0)))

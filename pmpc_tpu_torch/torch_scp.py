@@ -36,6 +36,7 @@ from .solvers.reduced import assemble_condensed, recover_XU, solve_eq, \
     update_condensed_linear
 from .solvers.riccati import riccati_consensus_solve
 from .solvers.riccati_ipm import riccati_ipm_solve_scp
+from .tracing import span
 from .utils import default_device, lane_where, matmul_precision_scope
 
 
@@ -273,12 +274,14 @@ def build_scp_solver(
         """One SCP iteration: linearize at the carry's iterate, then the
         fresh sub-iteration and ``relin_stale`` stale ones that reuse the
         linearization (and the condensed map and Hessian blocks)."""
-        X_ = torch.cat([data.x0[:, :, None, :], carry[0][:, :, :-1, :]], dim=2)
-        f, fx, fu = linearize(dynamics, X_, carry[1], data.params)
-        carry, ys, cqp = _sub_iteration(data, carry, f, fx, fu, None)
-        for _ in range(relin_stale):
-            carry, ys, cqp = _sub_iteration(data, carry, f, fx, fu, cqp)
-        return carry, ys
+        with span("scp.iter"):
+            X_ = torch.cat([data.x0[:, :, None, :], carry[0][:, :, :-1, :]], dim=2)
+            with span("scp.linearize"):
+                f, fx, fu = linearize(dynamics, X_, carry[1], data.params)
+            carry, ys, cqp = _sub_iteration(data, carry, f, fx, fu, None)
+            for _ in range(relin_stale):
+                carry, ys, cqp = _sub_iteration(data, carry, f, fx, fu, cqp)
+            return carry, ys
 
     def _sub_iteration(data: SCPData, carry, f, fx, fu, cqp_prev):
         X_prev, U_prev, it, done, resid, resid_m, warm, acc = carry
@@ -345,15 +348,16 @@ def build_scp_solver(
             if poison is not None:
                 X, U = X * poison, U * poison
         else:
-            if cqp_prev is None:
-                cqp = assemble_condensed(
-                    data.x0, f, fx, fu, X_prev, U_prev, data.Q, data.R,
-                    X_ref, U_ref, data.reg_x, data.reg_u, data.slew_reg,
-                    data.slew_reg0, data.slew_um1, Nc=Nc)
-            else:  # a stale sub-iteration: only q moves
-                cqp = update_condensed_linear(
-                    cqp_prev, X_prev, U_prev, data.Q, data.R, X_ref, U_ref,
-                    data.reg_x, data.reg_u, data.slew_reg0, data.slew_um1)
+            with span("scp.assemble"):
+                if cqp_prev is None:
+                    cqp = assemble_condensed(
+                        data.x0, f, fx, fu, X_prev, U_prev, data.Q, data.R,
+                        X_ref, U_ref, data.reg_x, data.reg_u, data.slew_reg,
+                        data.slew_reg0, data.slew_um1, Nc=Nc)
+                else:  # a stale sub-iteration: only q moves
+                    cqp = update_condensed_linear(
+                        cqp_prev, X_prev, U_prev, data.Q, data.R, X_ref, U_ref,
+                        data.reg_x, data.reg_u, data.slew_reg0, data.slew_um1)
             if has_bounds:
                 ul = data.u_l.reshape(B, M, N * udim)
                 uu = data.u_u.reshape(B, M, N * udim)
@@ -393,22 +397,23 @@ def build_scp_solver(
         X_lin, U_lin = X, U
         acc_out = acc
         if accel:
-            histF, histZ, nh, X_sol, U_sol = acc
-            Fk = torch.cat([dX.reshape(B, -1), dU.reshape(B, -1)], -1)
-            Zk = torch.cat([X.reshape(B, -1), U.reshape(B, -1)], -1)
-            histF_n = torch.roll(histF, -1, dims=1)
-            histF_n[:, -1] = Fk
-            histZ_n = torch.roll(histZ, -1, dims=1)
-            histZ_n[:, -1] = Zk
-            nh_n = torch.clamp(nh + 1, max=AW)
-            Z_acc, wmass = _aa_combine(histF_n, histZ_n, nh_n, Fk, Zk)
-            use = ((it + 1 >= accel_it0) & (nh_n >= 2)
-                   & (wmass < accel_wmax) & torch.isfinite(wmass) & ~now_done)
-            Z_lin = lane_where(use, Z_acc, Zk)
-            X_lin = Z_lin[:, :nx].reshape(X.shape)
-            U_lin = Z_lin[:, nx:].reshape(U.shape)
-            acc_out = tuple(_sel_tree(freeze, old, new) for old, new in zip(
-                acc, (histF_n, histZ_n, nh_n, X, U)))
+            with span("scp.accel"):
+                histF, histZ, nh, X_sol, U_sol = acc
+                Fk = torch.cat([dX.reshape(B, -1), dU.reshape(B, -1)], -1)
+                Zk = torch.cat([X.reshape(B, -1), U.reshape(B, -1)], -1)
+                histF_n = torch.roll(histF, -1, dims=1)
+                histF_n[:, -1] = Fk
+                histZ_n = torch.roll(histZ, -1, dims=1)
+                histZ_n[:, -1] = Zk
+                nh_n = torch.clamp(nh + 1, max=AW)
+                Z_acc, wmass = _aa_combine(histF_n, histZ_n, nh_n, Fk, Zk)
+                use = ((it + 1 >= accel_it0) & (nh_n >= 2)
+                       & (wmass < accel_wmax) & torch.isfinite(wmass) & ~now_done)
+                Z_lin = lane_where(use, Z_acc, Zk)
+                X_lin = Z_lin[:, :nx].reshape(X.shape)
+                U_lin = Z_lin[:, nx:].reshape(U.shape)
+                acc_out = tuple(_sel_tree(freeze, old, new) for old, new in zip(
+                    acc, (histF_n, histZ_n, nh_n, X, U)))
         keep = lambda old, new: _sel_tree(freeze, old, new)
         ys = None
         if collect_stats:
@@ -514,8 +519,8 @@ def build_scp_solver(
     def solver(data: SCPData, state=None):
         """``state``: the IPM warm tuple a previous call returned in
         ``info["solver_state"]`` (built with ``return_state=True``)."""
-        carry = init_carry(data, state)
-        with scope():
+        with span("scp.call"), scope():
+            carry = init_carry(data, state)
             ys = []
             if collect_stats:
                 # the fixed-length `lax.scan`: converged lanes freeze in place
