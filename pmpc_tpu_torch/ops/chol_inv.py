@@ -41,6 +41,7 @@ with ``ctypes``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -56,13 +57,15 @@ from . import block_chol
 SMALL_N = 64  # K1/K2 up to here, K3/K4 ("_big") above
 MAX_N = 96  # the kernel's limit (the TPU kernels' `_fits_big`)
 
-# launches of each kernel (plain CPU calls are not counted)
+# launches of each kernel that the device ran (plain CPU calls are not
+# counted; a CUDA graph's launches count at each replay, `count_replay`)
 LAUNCHES = {"inv_cholesky": 0, "inv_cholesky_diag": 0,
             "inv_cholesky_big": 0, "inv_cholesky_diag_big": 0}
 # every (counter name, batch, n, dtype) launched since it was last cleared,
 # with its launches: what a card-side check has to hold against the plain
 # versions, and the launches of each shape
 SHAPES = collections.Counter()
+_TALLY = None  # while a graph is captured: its launches, by shape
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc" / "chol_inv.cu"
@@ -181,8 +184,33 @@ def _on_cuda(A: torch.Tensor) -> bool:
 
 
 def _count(name: str, A: torch.Tensor) -> None:
+    key = (name, A.shape[0], A.shape[-1], A.dtype)
+    if _TALLY is not None:
+        _TALLY[key] += 1
+        return
     LAUNCHES[name] += 1
-    SHAPES[(name, A.shape[0], A.shape[-1], A.dtype)] += 1
+    SHAPES[key] += 1
+
+
+@contextlib.contextmanager
+def tally():
+    """Count the launches of the enclosed block, a CUDA graph's capture
+    (which runs nothing), into the Counter it yields instead of `LAUNCHES`
+    and `SHAPES`."""
+    global _TALLY
+    prev, _TALLY = _TALLY, collections.Counter()
+    try:
+        yield _TALLY
+    finally:
+        _TALLY = prev
+
+
+def count_replay(launches: collections.Counter) -> None:
+    """Count a captured block's launches (`tally`) once: one replay of its
+    graph ran them."""
+    for key, c in launches.items():
+        LAUNCHES[key[0]] += c
+        SHAPES[key] += c
 
 
 def inv_cholesky(A: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:

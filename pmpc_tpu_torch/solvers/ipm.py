@@ -29,7 +29,9 @@ breakdown boost) are (B,) tensors. The batched ``while_loop`` becomes a
 Python loop that runs while any lane is active; a lane that is not active
 keeps its state unchanged (``jax.vmap`` of ``lax.while_loop`` selects the
 same way), on top of the body's own freeze. The loop test costs one host
-sync per iteration.
+sync per iteration. On the card's box-only path the loop runs as chunks of
+k iterations captured once as a CUDA graph and replayed, with a host test
+between replays at most (`_ChunkGraph`); the arithmetic is the same.
 
 Under a particle group (`particles.particle_scope`) the (B, M, ...) arrays
 hold this rank's particles: the flat constraint vector's consensus rows are
@@ -40,15 +42,17 @@ non-finite test, the loop test) is completed over the group.
 
 from __future__ import annotations
 
+import collections
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..ops import chol_inv
 from ..ops.linalg import spd_apply, spd_factor
 from ..particles import group as particle_group, pany, pfirst, pmax, pmean, psum, \
     split_max, split_min, split_sum
-from ..tracing import span
+from ..tracing import COUNTS, span
 from ..utils import default_device, full_matmul_precision, lane_where, to_host
 from .coneipm import _soc_W, _soc_inv, _soc_prod, _soc_shift, _soc_step_len
 from .reduced import ArrowFactors, CondensedQP, H_apply_factored, arrow_apply, \
@@ -102,6 +106,22 @@ class IPMState(NamedTuple):
     badc: torch.Tensor  # (B,) int32 consecutive breakdowns (the cone retry counter)
     failed: torch.Tensor  # (B,) bool: gave up (the iterate has NO
     #                       feasibility guarantee)
+
+
+class _Opts(NamedTuple):
+    """The options that an IPM iteration's arithmetic reads (part of a
+    captured chunk's key)."""
+
+    has_u: bool
+    has_x: bool
+    has_soc: bool
+    has_ex: bool
+    tol_exp: int
+    kappa: float
+    mu_target: float
+    tau: float
+    gondzio: int
+    predictor: bool
 
 
 def box_weighted_K(cqp: CondensedQP, wc, wf, wx, Ftc, Ftf, has_u: bool,
@@ -185,6 +205,45 @@ def ipm_core(
     if has_ex and particle_group() is not None:
         raise ValueError("ipm_core: extra rows do not take a particle group")
 
+    opts = _Opts(has_u, has_x, has_soc, has_ex, tol_exp, kappa, mu_target,
+                 0.99 if tau is None else tau, gondzio, predictor)
+    init, body, failed_of = _core(cqp, bounds, tol_dynamic, socs, ex, opts)
+    state = init(warm)
+    ins = [*cqp, *bounds, tol_dynamic]  # what the box iteration reads (None: absent)
+    graph = _graph_for(ins, state, opts, iters)
+    if graph is not None:
+        state = graph.run(ins, state)
+    else:
+        # the loop of `jax.vmap(lax.while_loop)`: runs while ANY lane's
+        # condition holds; lanes whose own condition is false keep their state
+        active = _active(state, iters)
+        while pany(active):
+            with span("ipm.iter"):
+                state, active = _chunk(body, state, active, 1, iters)
+    if mu_target > 0:
+        # finish with pure centering steps: Mehrotra's second-order
+        # correction hunts mu -> 0 and wobbles around the mu_target point
+        ok_main = state.ok
+        state = state._replace(done=state.done & ~state.ok, ok=torch.zeros_like(ok_main))
+        for _ in range(10):
+            state = body(state, mehrotra=False)
+        # a transient breakdown during centering must not latch `failed` for
+        # a solve whose main phase converged (the frozen iterate is that point)
+        state = state._replace(failed=state.failed & ~ok_main,
+                               ok=state.ok | (ok_main & ~state.failed))
+    stats = dict(mu=state.mu, iters=state.iters, converged=state.ok,
+                 failed=failed_of(state), s=state.s, lam=state.lam, sq=state.sq, zq=state.zq)
+    return state.uc, state.uf, stats
+
+
+def _core(cqp: CondensedQP, bounds: BoxBounds, tol_dynamic, socs, ex, opts: _Opts):
+    """What one IPM iteration reads, derived from the inputs, and the
+    functions over it: ``init(warm)`` the starting `IPMState`,
+    ``body(state, mehrotra=True)`` one iteration of every lane, and
+    ``failed_of(state)`` the ``failed`` that `ipm_core` reports (with cones
+    an iterate outside them fails too). Pure tensor work with no host read,
+    so a CUDA graph can hold it (`_ChunkGraph`)."""
+    has_u, has_x, has_soc, has_ex, tol_exp, kappa, mu_target, tau, gondzio, predictor = opts
     dtype, dev = cqp.qf.dtype, cqp.qf.device
     B, M, nc, nf = cqp.Hff.shape[0], cqp.M, cqp.nc, cqp.nf
     tol = torch.full((B,), 10.0 ** tol_exp, dtype=dtype, device=dev)
@@ -192,7 +251,6 @@ def ipm_core(
         tol = torch.maximum(tol_dynamic.to(dtype), tol)
     sqrt_tol = torch.sqrt(tol)
     mu_ok_floor = torch.clamp(tol, min=mu_target * 1.05)
-    tau = 0.99 if tau is None else tau
     NX = cqp.g.shape[-1]
     Ftc = Ftf = None
     if has_x:  # (B, M, NX, nc/nf), loop-invariant matmul operands
@@ -309,29 +367,32 @@ def ipm_core(
         return tot / n_act
 
     # -- initialization -------------------------------------------------------
-    if warm is not None:
-        # warm point with a Yildirim-Wright interior shift; slacks recomputed
-        # from the warm primal against the new bounds
-        uc0, uf0, _, warm_lam = warm[:4]
-        s0 = torch.where(mask, torch.clamp(slack_vals(uc0, uf0), min=1e-2), 1.0)
-        lam0 = torch.where(mask, torch.clamp(warm_lam, min=1e-2), 0.0)
-    else:
-        F0 = arrow_factor(cqp.Hcc, cqp.Hcf, cqp.Hff, jitter=kappa)
-        uc0, uf0 = arrow_apply(F0, -cqp.qc, -cqp.qf)
-        s0 = torch.where(mask, torch.clamp(slack_vals(uc0, uf0), min=1.0), 1.0)
-        lam0 = torch.where(mask, 1.0 / s0, 0.0)
-    if has_soc:
-        sq0 = _soc_shift(cone_vals(uc0, uf0))
-        if warm is not None and len(warm) >= 6:
-            zq0 = _soc_shift(torch.where(rmask[..., None], warm[5], e_soc))
-        else:
-            zq0 = e_soc.expand(B, nq, p).clone()
-    else:  # placeholders: the cone fields of the state carry nothing
-        sq0 = zq0 = torch.zeros((B, 1, 1), dtype=dtype, device=dev)
     false = torch.zeros(B, dtype=torch.bool, device=dev)
-    zero_i = torch.zeros(B, dtype=torch.int32, device=dev)
-    state = IPMState(uc0, uf0, s0, lam0, sq0, zq0, mu_of(s0, lam0, sq0, zq0),
-                     false, false, zero_i, zero_i, false)
+
+    def init(warm):
+        """The starting point: ``warm`` (see `ipm_core`) or the cold start."""
+        if warm is not None:
+            # warm point with a Yildirim-Wright interior shift; slacks recomputed
+            # from the warm primal against the new bounds
+            uc0, uf0, _, warm_lam = warm[:4]
+            s0 = torch.where(mask, torch.clamp(slack_vals(uc0, uf0), min=1e-2), 1.0)
+            lam0 = torch.where(mask, torch.clamp(warm_lam, min=1e-2), 0.0)
+        else:
+            F0 = arrow_factor(cqp.Hcc, cqp.Hcf, cqp.Hff, jitter=kappa)
+            uc0, uf0 = arrow_apply(F0, -cqp.qc, -cqp.qf)
+            s0 = torch.where(mask, torch.clamp(slack_vals(uc0, uf0), min=1.0), 1.0)
+            lam0 = torch.where(mask, 1.0 / s0, 0.0)
+        if has_soc:
+            sq0 = _soc_shift(cone_vals(uc0, uf0))
+            if warm is not None and len(warm) >= 6:
+                zq0 = _soc_shift(torch.where(rmask[..., None], warm[5], e_soc))
+            else:
+                zq0 = e_soc.expand(B, nq, p).clone()
+        else:  # placeholders: the cone fields of the state carry nothing
+            sq0 = zq0 = torch.zeros((B, 1, 1), dtype=dtype, device=dev)
+        zero_i = torch.zeros(B, dtype=torch.int32, device=dev)
+        return IPMState(uc0, uf0, s0, lam0, sq0, zq0, mu_of(s0, lam0, sq0, zq0),
+                        false, false, zero_i, zero_i, false)
 
     def grad_lagrangian(uc, uf, lam, zq):
         """(gc, gf) = Hz + q + G'lam (+ the cone duals), Hz in factored form."""
@@ -632,34 +693,187 @@ def ipm_core(
         return merged._replace(done=done | now_done | give_up, ok=ok | now_done,
                                failed=failed | (give_up & ~ok & ~now_done))
 
-    # the loop of `jax.vmap(lax.while_loop)`: runs while ANY lane's condition
-    # holds; lanes whose own condition is false keep their state
-    while True:
-        active = ~state.done & (state.iters < iters)
-        if not pany(active):
-            break
-        with span("ipm.iter"):
-            new = body(state)
-            state = IPMState(*(lane_where(active, n, o) for n, o in zip(new, state)))
-    if mu_target > 0:
-        # finish with pure centering steps: Mehrotra's second-order
-        # correction hunts mu -> 0 and wobbles around the mu_target point
-        ok_main = state.ok
-        state = state._replace(done=state.done & ~state.ok, ok=false)
-        for _ in range(10):
-            state = body(state, mehrotra=False)
-        # a transient breakdown during centering must not latch `failed` for
-        # a solve whose main phase converged (the frozen iterate is that point)
-        state = state._replace(failed=state.failed & ~ok_main,
-                               ok=state.ok | (ok_main & ~state.failed))
-    failed = state.failed
-    if has_soc:
+    def failed_of(st: IPMState) -> torch.Tensor:
+        if not has_soc:
+            return st.failed
         # an exit at the iteration cap can leave any primal point: only a
         # cone-feasible iterate may be handed back as usable
-        failed = failed | (soc_viol(cone_vals(state.uc, state.uf)) > 2.0 * sqrt_tol)
-    stats = dict(mu=state.mu, iters=state.iters, converged=state.ok,
-                 failed=failed, s=state.s, lam=state.lam, sq=state.sq, zq=state.zq)
-    return state.uc, state.uf, stats
+        return st.failed | (soc_viol(cone_vals(st.uc, st.uf)) > 2.0 * sqrt_tol)
+
+    return init, body, failed_of
+
+
+# -- the loop in chunks, and chunks captured as CUDA graphs ---------------------
+
+def _active(st: IPMState, cap: int) -> torch.Tensor:
+    """The lanes the loop still advances: not done and under the cap."""
+    return ~st.done & (st.iters < cap)
+
+
+def _chunk(body, state: IPMState, active: torch.Tensor, k: int, cap: int):
+    """k turns of the IPM loop with no host read. A turn runs ``body`` over
+    every lane, keeps its step in the ``active`` lanes alone (the others keep
+    their state, as `jax.vmap` of `lax.while_loop` selects) and finds the
+    lanes active in the next turn. A turn with no lane active changes
+    nothing, so a chunk that runs past the loop's end ends in the loop's own
+    state. Returns (state, active)."""
+    for _ in range(k):
+        new = body(state)
+        state = IPMState(*(lane_where(active, n, o) for n, o in zip(new, state)))
+        active = _active(state, cap)
+    return state, active
+
+
+def _engages(device_type: str, opts: _Opts, group) -> bool:
+    """Whether the loop runs as captured chunks (`_ChunkGraph`): on a CUDA
+    device, on the box-only path (control bounds alone), with no particle
+    group (its all-reduces stay eager) and no central-path target (the
+    logbarrier smoothing, whose centering tail runs eager)."""
+    return (device_type == "cuda" and opts.has_u
+            and not (opts.has_x or opts.has_soc or opts.has_ex)
+            and group is None and opts.mu_target <= 0)
+
+
+# A chunk's iterations, from B M (lanes x particles, the device work of one
+# iteration). A chunk of the whole cap reads nothing on the host in the IPM
+# but runs the iterations left once every lane has finished: free while the
+# device idles through the host's part of an SCP round, a cost once the
+# device sets the pace. The headline program (cap 8) on an H100, 700 W
+# (PERF.md §6): at B M = 2,048 (0.83 ms of device time an iteration, the
+# device busy a fifth of a round) chunks of 8 ran 12% more iterations and
+# 1.72x the eager loop's solves/s; at 32,768 (6.77 ms, busy four fifths)
+# chunks of 8 ran 6% more iterations and 3% slower than the eager loop,
+# chunks of 2 ran 2.5% more and as fast. The switch lies between the two.
+CHUNK_LANES = 8192  # B M up to which a chunk runs the whole cap, to CHUNK_MAX
+CHUNK_MAX = 8  # the longest chunk measured
+CHUNK_ABOVE = 2  # the chunk's iterations above CHUNK_LANES
+
+
+def _chunk_len(lanes: int, cap: int) -> int:
+    """Iterations a captured chunk runs, from ``lanes`` = B M."""
+    return min(cap, CHUNK_MAX if lanes <= CHUNK_LANES else CHUNK_ABOVE)
+
+
+GRAPH_CACHE = 4  # captured chunks kept; the least recently used goes first
+_GRAPHS = collections.OrderedDict()  # key -> _ChunkGraph
+_SEEN = collections.OrderedDict()  # keys met once and not captured
+_SEEN_MAX = 64
+
+
+def _graph_for(ins: list, state: IPMState, opts: _Opts, cap: int):
+    """The captured chunk that runs this call's loop, or None for the eager
+    loop. A key (shapes and dtypes of the inputs, device, options, chunk
+    length, cap, matmul precision) is captured when it is met the second
+    time, so a shape met once never pays for a capture."""
+    cqp = CondensedQP(*ins[:len(CondensedQP._fields)])
+    if not _engages(cqp.qf.device.type, opts, particle_group()):
+        return None
+    k = _chunk_len(cqp.Hff.shape[0] * cqp.M, cap)
+    key = (tuple(None if t is None else (tuple(t.shape), t.dtype) for t in ins),
+           cqp.qf.device, opts, k, cap, torch.get_float32_matmul_precision())
+    graph = _GRAPHS.get(key)
+    if graph is not None:
+        _GRAPHS.move_to_end(key)
+        return graph
+    if _SEEN.pop(key, None) is None:
+        _SEEN[key] = True
+        if len(_SEEN) > _SEEN_MAX:
+            _SEEN.popitem(last=False)
+        return None
+    graph = _GRAPHS[key] = _ChunkGraph(ins, state, opts, k, cap)
+    if len(_GRAPHS) > GRAPH_CACHE:
+        _GRAPHS.popitem(last=False)
+    return graph
+
+
+class _CudaGraph:
+    """`torch.cuda.CUDAGraph` behind the two calls `_Captured` makes."""
+
+    def __init__(self):
+        self.graph = torch.cuda.CUDAGraph()
+
+    def capture(self, fn):
+        with torch.cuda.graph(self.graph):
+            fn()
+
+    def replay(self):
+        self.graph.replay()
+
+
+_new_graph = _CudaGraph
+
+
+class _Captured:
+    """``fn`` captured as a graph, with the kernel launches it recorded
+    (`chol_inv.tally`), which the launch counters take at each replay."""
+
+    def __init__(self, fn):
+        self.graph = _new_graph()
+        with chol_inv.tally() as self.launches:
+            self.graph.capture(fn)
+
+    def replay(self):
+        self.graph.replay()
+        chol_inv.count_replay(self.launches)
+
+
+def _copy_all(dst, src) -> None:
+    """``d.copy_(s)`` for each pair, as one multi-tensor copy a dtype."""
+    groups = {}
+    for d, s in zip(dst, src):
+        ds, ss = groups.setdefault(d.dtype, ([], []))
+        ds.append(d)
+        ss.append(s)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)
+
+
+class _ChunkGraph:
+    """k iterations of the box IPM (`_chunk`) captured once as a graph, and
+    replayed in place of the eager loop.
+
+    The graphs read static copies of the inputs and of the state. One, run
+    once a call, derives the constraint layout from the inputs (`_core`);
+    the other runs a chunk and writes its final state back into the state's
+    copies, so replays chain. A call copies its inputs and its starting
+    point in, replays the chunk at most ceil(cap / k) times, testing on the
+    host between replays whether any lane is active (no test when k covers
+    the cap), and hands back copies of the state."""
+
+    def __init__(self, ins: list, state: IPMState, opts: _Opts, k: int, cap: int):
+        self.ins = [None if t is None else t.clone() for t in ins]
+        self.state = IPMState(*(t.clone() for t in state))
+        self.active = torch.zeros_like(state.done)  # the lanes active after a chunk
+        self.k, self.cap = k, cap
+        n = len(CondensedQP._fields)
+        cqp, bounds = CondensedQP(*self.ins[:n]), BoxBounds(*self.ins[n:-1])
+        fns = {}
+
+        def layout():
+            fns["body"] = _core(cqp, bounds, self.ins[-1], None, None, opts)[1]
+
+        def chunk():
+            new, active = _chunk(fns["body"], self.state, _active(self.state, cap), k, cap)
+            _copy_all((*self.state, self.active), (*new, active))
+
+        with span("ipm.capture"):
+            self.layout, self.chunk = _Captured(layout), _Captured(chunk)
+        COUNTS["ipm_graph_capture"] += 1
+
+    def run(self, ins: list, state: IPMState) -> IPMState:
+        pairs = [(b, t) for b, t in zip((*self.ins, *self.state), (*ins, *state))
+                 if b is not None]
+        _copy_all(*zip(*pairs))
+        self.layout.replay()
+        for r in range(-(-self.cap // self.k)):
+            if r and not pany(self.active):
+                break
+            with span("ipm.iter", self.k):
+                self.chunk.replay()
+            COUNTS["ipm_graph_replay"] += 1
+        out = IPMState(*(torch.empty_like(t) for t in self.state))
+        _copy_all(out, self.state)
+        return out
 
 
 def _layout_bounds(u_l, u_u, x_l, x_u, M, N, NX, nc, nf, udim, dtype, device=None

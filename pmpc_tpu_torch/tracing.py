@@ -19,7 +19,14 @@ directly. Spans are recorded from one thread: the solver's.
 
 `COUNTS` are integers counted whether or not a recording is open:
 ``host_read`` is the number of loop tests that read the device's answer on
-the host (`particles.pany`).
+the host (`particles.pany`); ``ipm_graph_capture`` and ``ipm_graph_replay``
+the captures and replays of the box IPM's chunks of iterations as CUDA
+graphs (`solvers.ipm._ChunkGraph`).
+
+Where the box IPM runs as a CUDA graph, a replay is one ``ipm.iter`` span
+with ``n`` the chunk's iterations; ``ipm.factor``, ``ipm.residual`` and
+``ipm.solve`` then appear only at the capture, inside the span
+``ipm.capture``, since a replay runs no Python.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from __future__ import annotations
 import contextlib
 import time
 
-COUNTS = {"host_read": 0}
+COUNTS = {"host_read": 0, "ipm_graph_capture": 0, "ipm_graph_replay": 0}
 
 _clock = time.time_ns
 _rec = None  # the list being recorded; None: off
