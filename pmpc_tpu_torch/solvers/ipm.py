@@ -744,14 +744,20 @@ def _engages(device_type: str, opts: _Opts, group) -> bool:
 # 1.72x the eager loop's solves/s; at 32,768 (6.77 ms, busy four fifths)
 # chunks of 8 ran 6% more iterations and 3% slower than the eager loop,
 # chunks of 2 ran 2.5% more and as fast. The switch lies between the two.
-CHUNK_LANES = 8192  # B M up to which a chunk runs the whole cap, to CHUNK_MAX
+# Config 5 (f64, nf = 90, cap 12) at 16,384: chunks of 2 and 4 within the
+# run-to-run spread of each other, 3, 6 and 12 slower (PERF.md §6).
+CHUNK_LANES = 8192  # B M up to which chunks run up to CHUNK_MAX iterations
 CHUNK_MAX = 8  # the longest chunk measured
 CHUNK_ABOVE = 2  # the chunk's iterations above CHUNK_LANES
 
 
 def _chunk_len(lanes: int, cap: int) -> int:
-    """Iterations a captured chunk runs, from ``lanes`` = B M."""
-    return min(cap, CHUNK_MAX if lanes <= CHUNK_LANES else CHUNK_ABOVE)
+    """Iterations a captured chunk runs, from ``lanes`` = B M: the fewest
+    replays of at most the longest chunk that cover the cap, each as short
+    as they allow, so that a cap over CHUNK_MAX runs no turn past it where
+    the replays divide it (cap 12: two chunks of 6, not two of 8)."""
+    kmax = CHUNK_MAX if lanes <= CHUNK_LANES else CHUNK_ABOVE
+    return -(-cap // -(-cap // kmax))
 
 
 GRAPH_CACHE = 4  # captured chunks kept; the least recently used goes first

@@ -12,9 +12,13 @@ their CUDA graphs (`solvers.ipm._ChunkGraph`):
 - a capture adds nothing to `chol_inv.LAUNCHES` or `SHAPES`, each replay
   adds the captured launches once, and `COUNTS` counts captures and
   replays;
+- a chunk runs the fewest replays of at most its longest length that
+  cover the cap, each as short as they allow (`ipm._chunk_len`);
 - on the card (the ``cuda`` marker): graph and eager agree on the
-  headline batch (B = 64, M = 32, N = 30), and the profiler's K1 events
-  over a graph-path call equal the K1 counter's increase.
+  headline batch (B = 64, M = 32, N = 30, f32) and on the pod-scale
+  configuration (B = 4, M = 64, N = 50, f64, cap 12), and the profiler's
+  K1 events (headline) and K3 events (pod-scale) over a graph-path call
+  equal their counter's increase.
 
 The card cases run with
 ``python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_ipm_graph.py``.
@@ -27,7 +31,7 @@ import torch
 
 import pmpc_tpu_torch.torch_scp as torch_scp
 from pmpc_tpu_torch import tracing
-from pmpc_tpu_torch.flagship import HEADLINE_KW, flagship, stack_varied
+from pmpc_tpu_torch.flagship import HEADLINE_KW, flagship, podscale, stack_varied
 from pmpc_tpu_torch.ops import chol_inv, linalg
 from pmpc_tpu_torch.solvers import ipm
 from pmpc_tpu_torch.solvers.ipm import IPMState, _Opts
@@ -209,6 +213,23 @@ def test_engage_rule(device_type, changes, group, engages):
     assert ipm._engages(device_type, BOX._replace(**changes), group) is engages
 
 
+@pytest.mark.parametrize("cap,below,above", [(8, 8, 2), (12, 6, 2), (15, 8, 2), (5, 5, 2),
+                                               (1, 1, 1)])
+def test_chunk_len_divides_the_cap(cap, below, above):
+    """On both sides of `CHUNK_LANES` (the headline cell's B M = 2,048 and the
+    Monte-Carlo one's 32,768 among them), a chunk is the fewest replays of
+    at most the side's longest chunk that cover the cap, each as short as
+    they allow: caps up to 8 keep min(cap, 8) and min(cap, 2), cap 12 runs
+    two replays of 6 (not of 8) below and six of 2 above."""
+    for lanes, kmax, k in ((2048, ipm.CHUNK_MAX, below), (ipm.CHUNK_LANES, ipm.CHUNK_MAX, below),
+                           (ipm.CHUNK_LANES + 1, ipm.CHUNK_ABOVE, above),
+                           (32768, ipm.CHUNK_ABOVE, above)):
+        assert ipm._chunk_len(lanes, cap) == k
+        replays = -(-cap // k)
+        assert k <= kmax and replays == -(-cap // kmax)
+        assert k == -(-cap // replays)
+
+
 def test_cpu_never_captures(subproblem):
     cqp, bounds, kw = subproblem
     captures = tracing.COUNTS["ipm_graph_capture"]
@@ -312,6 +333,17 @@ def _headline(dev):
     return solver, stack_varied(data, 64)
 
 
+def _pod(dev):
+    """BASELINE config 5 as the benchmark's ``dubins_m64_n50_f64`` runs it
+    (f64, res_tol 1e-3, 12 IPM iterations a subproblem), over 4 lanes: K3 at
+    (256, 90, 90), chunks of 6."""
+    solver, data = podscale(dtype=torch.float64, device=dev, res_tol=1e-3)
+    return solver, stack_varied(data, 4, scale=0.02)
+
+
+PROGRAMS = {"headline": (_headline, 1e-6), "pod": (_pod, 1e-10)}
+
+
 def _solve_recording_ipm(solver, data, monkeypatch):
     """(U, SCP iterations, the IPM iterations of each subproblem (S, B))."""
     its, real = [], torch_scp.ipm_core
@@ -329,10 +361,15 @@ def _solve_recording_ipm(solver, data, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_graph_matches_eager_on_the_card(cuda, monkeypatch):
-    """The headline batch: the same SCP and IPM iteration counts lane by
-    lane and U within 1e-6 (the same kernels on the same inputs)."""
-    solver, data = _headline(cuda)
+@pytest.mark.parametrize("program", list(PROGRAMS))
+def test_graph_matches_eager_on_the_card(cuda, monkeypatch, program):
+    """The headline batch (f32, chunks of the cap 8) and the pod-scale one
+    (f64, chunks of 6 under the cap 12): the same SCP and IPM iteration
+    counts lane by lane, and U within 1e-6 in f32, 1e-10 in f64 (the same
+    kernels on the same inputs; a bound, not bit equality, in case a
+    library picks another algorithm under capture)."""
+    make, tol = PROGRAMS[program]
+    solver, data = make(cuda)
     solver(data)  # the capture
     replays = tracing.COUNTS["ipm_graph_replay"]
     U, its, ipm_its = _solve_recording_ipm(solver, data, monkeypatch)
@@ -341,7 +378,7 @@ def test_graph_matches_eager_on_the_card(cuda, monkeypatch):
     U0, its0, ipm_its0 = _solve_recording_ipm(solver, data, monkeypatch)
     assert torch.equal(its, its0)
     assert torch.equal(ipm_its, ipm_its0)
-    assert (U - U0).abs().max().item() <= 1e-6
+    assert (U - U0).abs().max().item() <= tol
 
 
 @pytest.mark.cuda
@@ -361,3 +398,25 @@ def test_profiler_counts_the_replayed_k1(cuda):
               if e.device_type() == torch.autograd.DeviceType.CUDA and k1.search(e.name())]
     assert tracing.COUNTS["ipm_graph_replay"] > r0
     assert len(events) == chol_inv.LAUNCHES["inv_cholesky_diag"] - n0 > 0
+
+
+@pytest.mark.cuda
+def test_profiler_counts_the_replayed_k3(cuda):
+    """Over a pod-scale call on the graph path (nf = 90: every IPM iteration
+    factors with K3), the K3 kernels in the profiler's device trace are the
+    K3 counter's increase, as the benchmark's ``k3_roofline_pct.pod`` needs,
+    and no K1 runs."""
+    solver, data = _pod(cuda)
+    solver(data)  # the capture, outside the trace, as the benchmark's warm-up
+    torch.cuda.synchronize()
+    k3 = re.compile(r"\bchol_inv_kernel<[^,<>]+,\s*true\s*,\s*64\s*,")
+    n0, r0 = chol_inv.LAUNCHES["inv_cholesky_diag_big"], tracing.COUNTS["ipm_graph_replay"]
+    k1 = chol_inv.LAUNCHES["inv_cholesky_diag"]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        solver(data)
+        torch.cuda.synchronize()
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA and k3.search(e.name())]
+    assert tracing.COUNTS["ipm_graph_replay"] > r0
+    assert len(events) == chol_inv.LAUNCHES["inv_cholesky_diag_big"] - n0 > 0
+    assert chol_inv.LAUNCHES["inv_cholesky_diag"] == k1
