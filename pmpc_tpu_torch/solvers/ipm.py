@@ -760,36 +760,60 @@ def _chunk_len(lanes: int, cap: int) -> int:
     return -(-cap // -(-cap // kmax))
 
 
-GRAPH_CACHE = 4  # captured chunks kept; the least recently used goes first
-_GRAPHS = collections.OrderedDict()  # key -> _ChunkGraph
-_SEEN = collections.OrderedDict()  # keys met once and not captured
-_SEEN_MAX = 64
+class _GraphCache:
+    """Captured graphs by key, at most ``size``, the least recently used
+    dropped first. A key is captured the second time it is met, so a shape
+    met once never pays for a capture; a key whose capture raised is not
+    tried again."""
+
+    SEEN_MAX = 64
+
+    def __init__(self, size: int):
+        self.size = size
+        self.graphs = collections.OrderedDict()  # key -> graph
+        self.seen = collections.OrderedDict()  # keys met once and not captured
+        self.refused = set()  # keys whose capture raised
+
+    def get(self, key, capture):
+        """The graph of ``key``, made by ``capture()`` at the key's second
+        sighting; None where the caller runs eagerly."""
+        graph = self.graphs.get(key)
+        if graph is not None:
+            self.graphs.move_to_end(key)
+            return graph
+        if key in self.refused:
+            return None
+        if self.seen.pop(key, None) is None:
+            self.seen[key] = True
+            if len(self.seen) > self.SEEN_MAX:
+                self.seen.popitem(last=False)
+            return None
+        try:
+            graph = capture()
+        except Exception:  # noqa: BLE001 - any refusal of the capture: run eager
+            self.refused.add(key)
+            return None
+        self.graphs[key] = graph
+        if len(self.graphs) > self.size:
+            self.graphs.popitem(last=False)
+        return graph
+
+
+GRAPH_CACHE = 4  # captured chunks kept
+_CACHE = _GraphCache(GRAPH_CACHE)
 
 
 def _graph_for(ins: list, state: IPMState, opts: _Opts, cap: int):
     """The captured chunk that runs this call's loop, or None for the eager
-    loop. A key (shapes and dtypes of the inputs, device, options, chunk
-    length, cap, matmul precision) is captured when it is met the second
-    time, so a shape met once never pays for a capture."""
+    loop. The key: shapes and dtypes of the inputs, device, options, chunk
+    length, cap, matmul precision."""
     cqp = CondensedQP(*ins[:len(CondensedQP._fields)])
     if not _engages(cqp.qf.device.type, opts, particle_group()):
         return None
     k = _chunk_len(cqp.Hff.shape[0] * cqp.M, cap)
     key = (tuple(None if t is None else (tuple(t.shape), t.dtype) for t in ins),
            cqp.qf.device, opts, k, cap, torch.get_float32_matmul_precision())
-    graph = _GRAPHS.get(key)
-    if graph is not None:
-        _GRAPHS.move_to_end(key)
-        return graph
-    if _SEEN.pop(key, None) is None:
-        _SEEN[key] = True
-        if len(_SEEN) > _SEEN_MAX:
-            _SEEN.popitem(last=False)
-        return None
-    graph = _GRAPHS[key] = _ChunkGraph(ins, state, opts, k, cap)
-    if len(_GRAPHS) > GRAPH_CACHE:
-        _GRAPHS.popitem(last=False)
-    return graph
+    return _CACHE.get(key, lambda: _ChunkGraph(ins, state, opts, k, cap))
 
 
 class _CudaGraph:
@@ -799,8 +823,13 @@ class _CudaGraph:
         self.graph = torch.cuda.CUDAGraph()
 
     def capture(self, fn):
-        with torch.cuda.graph(self.graph):
-            fn()
+        stream = torch.cuda.current_stream()
+        try:
+            with torch.cuda.graph(self.graph):
+                fn()
+        finally:
+            # a capture that fails in its end leaves the capture stream current
+            torch.cuda.set_stream(stream)
 
     def replay(self):
         self.graph.replay()

@@ -30,13 +30,14 @@ import torch
 from .dynamics import linearize
 from .particles import global_particles, pany, pfirst, pmax, pmean, psum, \
     particle_scope
-from .solvers.ipm import BoxBounds, ipm_core, layout_socs
+from .solvers.ipm import BoxBounds, _Captured, _copy_all, _GraphCache, ipm_core, \
+    layout_socs
 from .solvers.priccati import priccati_consensus_solve
 from .solvers.reduced import assemble_condensed, recover_XU, solve_eq, \
     update_condensed_linear
 from .solvers.riccati import riccati_consensus_solve
 from .solvers.riccati_ipm import riccati_ipm_solve_scp
-from .tracing import span
+from .tracing import COUNTS, span
 from .utils import default_device, lane_where, matmul_precision_scope
 
 
@@ -201,6 +202,16 @@ def build_scp_solver(
     `parallel.make_sharded_solver` builds); every reduction over particles
     is completed over the group (`particles`).
 
+    On a CUDA device, with the condensed method and no particle group, the
+    fresh sub-iteration's linearization and condensed assembly run as a CUDA
+    graph, captured once a shape (at its second sighting) and replayed: the
+    dynamics' kernels are recorded, not its Python. So Python-level
+    constants the function closes over are read at the capture, while
+    tensors it closes over are read at each replay (an in-place update of
+    weights is seen). This is the JAX solver's contract too: ``jax.jit``
+    traces the dynamics once a shape. A dynamics the capture refuses (one
+    that reads the device on the host, say) runs eagerly.
+
     Returns ``solver(data, state=None) -> (X (B,M,N+1,xdim), U (B,M,N,udim),
     info)`` with ``info`` keys iters, resid, converged, resid_particle (and
     solver_state with ``return_state``), each with a leading B axis. The
@@ -273,17 +284,37 @@ def build_scp_solver(
     def iteration(data: SCPData, carry):
         """One SCP iteration: linearize at the carry's iterate, then the
         fresh sub-iteration and ``relin_stale`` stale ones that reuse the
-        linearization (and the condensed map and Hessian blocks)."""
+        linearization (and the condensed map and Hessian blocks). The
+        condensed method linearizes inside its fresh sub-iteration, together
+        with the assembly (`lin_assemble`)."""
         with span("scp.iter"):
-            X_ = torch.cat([data.x0[:, :, None, :], carry[0][:, :, :-1, :]], dim=2)
-            with span("scp.linearize"):
-                f, fx, fu = linearize(dynamics, X_, carry[1], data.params)
-            carry, ys, cqp = _sub_iteration(data, carry, f, fx, fu, None)
+            lin = None
+            if riccati:
+                X_ = torch.cat([data.x0[:, :, None, :], carry[0][:, :, :-1, :]], dim=2)
+                with span("scp.linearize"):
+                    lin = linearize(dynamics, X_, carry[1], data.params)
+            carry, ys, cqp = _sub_iteration(data, carry, lin, None)
             for _ in range(relin_stale):
-                carry, ys, cqp = _sub_iteration(data, carry, f, fx, fu, cqp)
+                carry, ys, cqp = _sub_iteration(data, carry, lin, cqp)
             return carry, ys
 
-    def _sub_iteration(data: SCPData, carry, f, fx, fu, cqp_prev):
+    def lin_assemble(x0, X_prev, U_prev, params, Q, R, X_ref, U_ref, reg_x, reg_u,
+                     slew_reg, slew_reg0, slew_um1):
+        """The condensed method's fresh sub-iteration up to its QP: the
+        linearization at (X_prev, U_prev) and the condensed assembly.
+        Returns (f, fx, fu, cqp)."""
+        X_ = torch.cat([x0[:, :, None, :], X_prev[:, :, :-1, :]], dim=2)
+        with span("scp.linearize"):
+            f, fx, fu = linearize(dynamics, X_, U_prev, params)
+        with span("scp.assemble"):
+            cqp = assemble_condensed(
+                x0, f, fx, fu, X_prev, U_prev, Q, R, X_ref, U_ref, reg_x, reg_u,
+                slew_reg, slew_reg0, slew_um1, Nc=Nc)
+        return f, fx, fu, cqp
+
+    lin_graphs = _LinGraphs(lin_assemble)
+
+    def _sub_iteration(data: SCPData, carry, lin, cqp_prev):
         X_prev, U_prev, it, done, resid, resid_m, warm, acc = carry
         B = X_prev.shape[0]
         X_ref, U_ref = data.X_ref, data.U_ref
@@ -313,6 +344,7 @@ def build_scp_solver(
             # O(N) stage-structured solve: no O(N^2) Ft, the consensus Schur
             # complement is a per-particle theta-quadratic sum
             slew_kw, poison = {}, None
+            f, fx, fu = lin
             if has_slew:
                 slew_kw = dict(slew_reg=data.slew_reg, slew_reg0=data.slew_reg0,
                                slew_um1=data.slew_um1)
@@ -348,13 +380,15 @@ def build_scp_solver(
             if poison is not None:
                 X, U = X * poison, U * poison
         else:
-            with span("scp.assemble"):
-                if cqp_prev is None:
-                    cqp = assemble_condensed(
-                        data.x0, f, fx, fu, X_prev, U_prev, data.Q, data.R,
-                        X_ref, U_ref, data.reg_x, data.reg_u, data.slew_reg,
-                        data.slew_reg0, data.slew_um1, Nc=Nc)
-                else:  # a stale sub-iteration: only q moves
+            if cqp_prev is None:
+                # on the card a replayed graph's outputs: the next fresh
+                # sub-iteration overwrites them (`_LinGraphs`)
+                cqp = lin_graphs(
+                    (data.x0, X_prev, U_prev, data.params, data.Q, data.R, X_ref, U_ref,
+                     data.reg_x, data.reg_u, data.slew_reg, data.slew_reg0, data.slew_um1),
+                    _lin_engages(data.Q.device.type, method, particle_group))[3]
+            else:  # a stale sub-iteration: only q moves
+                with span("scp.assemble"):
                     cqp = update_condensed_linear(
                         cqp_prev, X_prev, U_prev, data.Q, data.R, X_ref, U_ref,
                         data.reg_x, data.reg_u, data.slew_reg0, data.slew_um1)
@@ -552,3 +586,70 @@ def _sel_tree(cond, a, b):
     if isinstance(a, tuple):
         return tuple(lane_where(cond, x, y) for x, y in zip(a, b))
     return lane_where(cond, a, b)
+
+
+# -- the fresh sub-iteration's linearization and assembly as CUDA graphs -------
+
+def _lin_engages(device_type: str, method: str, group) -> bool:
+    """Whether a fresh sub-iteration replays its linearization and condensed
+    assembly as a captured graph (`_LinGraphs`): on a CUDA device, with the
+    condensed method, and with no particle group (the assembly's `psum` is
+    then an all-reduce, kept eager)."""
+    return device_type == "cuda" and method == "condensed" and group is None
+
+
+LIN_GRAPH_CACHE = 2  # captured graphs a solver keeps
+
+
+class _LinGraphs:
+    """One built solver's ``lin_assemble(*ins) -> (f, fx, fu, cqp)``, run
+    eagerly or, where the engage rule holds, as captured CUDA graphs
+    (`_LinGraph`), cached by key: the inputs' shapes and dtypes (None for
+    an absent input), the device and the matmul precision. A key whose
+    capture raised (a dynamics function that reads the device on the host,
+    say) runs eagerly for the rest of the solver's life.
+
+    A replay writes its outputs over those of the replay before: the caller
+    holds them for one SCP round. Their holders are the subproblem solve
+    (the IPM's graph copies the QP into its own inputs, the eager IPM and
+    `solve_eq` read it within the round), `recover_XU` (fresh X, U) and the
+    round's ``relin_stale`` sub-iterations (`update_condensed_linear` keeps
+    its map and Hessian blocks). No carry, ``collect_stats`` row or
+    ``return_state`` tuple holds any of them."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.cache = _GraphCache(LIN_GRAPH_CACHE)
+
+    def __call__(self, ins: tuple, engage: bool):
+        graph = None
+        if engage:
+            key = (tuple(None if t is None else (tuple(t.shape), t.dtype) for t in ins),
+                   ins[0].device, torch.get_float32_matmul_precision())
+            graph = self.cache.get(key, lambda: _LinGraph(self.fn, ins))
+        return self.fn(*ins) if graph is None else graph.run(ins)
+
+
+class _LinGraph:
+    """``fn`` captured once as a graph over static copies of its inputs, and
+    replayed in place of the eager call: a run copies the inputs in (one
+    multi-tensor copy a dtype) and replays. Its outputs are the tensors the
+    capture made, which each replay overwrites."""
+
+    def __init__(self, fn, ins: tuple):
+        self.ins = [None if t is None else t.clone() for t in ins]
+
+        def run():
+            self.out = fn(*self.ins)
+
+        with span("scp.capture"):
+            self.graph = _Captured(run)
+        COUNTS["lin_graph_capture"] += 1
+
+    def run(self, ins: tuple):
+        with span("scp.linearize"):
+            _copy_all(*zip(*[(b, t) for b, t in zip(self.ins, ins) if b is not None]))
+        with span("scp.assemble"):
+            self.graph.replay()
+        COUNTS["lin_graph_replay"] += 1
+        return self.out

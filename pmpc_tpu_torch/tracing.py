@@ -21,12 +21,18 @@ directly. Spans are recorded from one thread: the solver's.
 ``host_read`` is the number of loop tests that read the device's answer on
 the host (`particles.pany`); ``ipm_graph_capture`` and ``ipm_graph_replay``
 the captures and replays of the box IPM's chunks of iterations as CUDA
-graphs (`solvers.ipm._ChunkGraph`).
+graphs (`solvers.ipm._ChunkGraph`); ``lin_graph_capture`` and
+``lin_graph_replay`` those of a fresh SCP sub-iteration's linearization and
+condensed assembly (`torch_scp._LinGraph`), so replays over fresh SCP rounds
+is the share of rounds that took the graph.
 
 Where the box IPM runs as a CUDA graph, a replay is one ``ipm.iter`` span
 with ``n`` the chunk's iterations; ``ipm.factor``, ``ipm.residual`` and
 ``ipm.solve`` then appear only at the capture, inside the span
-``ipm.capture``, since a replay runs no Python.
+``ipm.capture``, since a replay runs no Python. Where the linearization and
+assembly run as a graph, ``scp.linearize`` covers the copy of the graph's
+inputs and ``scp.assemble`` the replay, which runs both; at the capture the
+eager ``scp.linearize`` and ``scp.assemble`` appear inside ``scp.capture``.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ from __future__ import annotations
 import contextlib
 import time
 
-COUNTS = {"host_read": 0, "ipm_graph_capture": 0, "ipm_graph_replay": 0}
+COUNTS = {"host_read": 0, "ipm_graph_capture": 0, "ipm_graph_replay": 0,
+          "lin_graph_capture": 0, "lin_graph_replay": 0}
 
 _clock = time.time_ns
 _rec = None  # the list being recorded; None: off

@@ -8,7 +8,8 @@ their CUDA graphs (`solvers.ipm._ChunkGraph`):
   SCP solver on it;
 - the graph path engages only on a CUDA device, on the box-only path,
   without a particle group or a central-path target, and on a key's second
-  sighting; the cache of graphs keeps `GRAPH_CACHE` keys;
+  sighting; the cache of graphs keeps `GRAPH_CACHE` keys; a key whose
+  capture raised runs the eager loop from then on;
 - a capture adds nothing to `chol_inv.LAUNCHES` or `SHAPES`, each replay
   adds the captured launches once, and `COUNTS` counts captures and
   replays;
@@ -51,13 +52,9 @@ def cuda():
 
 
 @pytest.fixture(autouse=True)
-def no_graphs():
-    """Each test starts and ends with no captured chunk and no sighting."""
-    ipm._GRAPHS.clear()
-    ipm._SEEN.clear()
-    yield
-    ipm._GRAPHS.clear()
-    ipm._SEEN.clear()
+def no_graphs(monkeypatch):
+    """Each test runs on a cache of its own: no captured chunk, no sighting."""
+    monkeypatch.setattr(ipm, "_CACHE", ipm._GraphCache(ipm.GRAPH_CACHE))
 
 
 class StandIn:
@@ -235,7 +232,7 @@ def test_cpu_never_captures(subproblem):
     captures = tracing.COUNTS["ipm_graph_capture"]
     for _ in range(3):
         ipm.ipm_core(cqp, bounds, **kw)
-    assert tracing.COUNTS["ipm_graph_capture"] == captures and not ipm._GRAPHS
+    assert tracing.COUNTS["ipm_graph_capture"] == captures and not ipm._CACHE.graphs
 
 
 def test_a_key_is_captured_at_its_second_sighting(subproblem, graphs):
@@ -255,8 +252,31 @@ def test_a_key_is_captured_at_its_second_sighting(subproblem, graphs):
         for _ in range(2):
             ipm.ipm_core(cqp, bounds, **dict(kw, iters=cap))
     assert tracing.COUNTS["ipm_graph_capture"] == c0 + 1 + ipm.GRAPH_CACHE
-    assert len(ipm._GRAPHS) == ipm.GRAPH_CACHE
-    assert all(key[4] != CAP for key in ipm._GRAPHS)  # the oldest key went first
+    assert len(ipm._CACHE.graphs) == ipm.GRAPH_CACHE
+    assert all(key[4] != CAP for key in ipm._CACHE.graphs)  # the oldest key went first
+
+
+def test_a_refused_capture_runs_the_eager_loop(subproblem, graphs, monkeypatch):
+    """A capture that raises leaves its key to the eager loop for good: the
+    eager results, no capture counted, no second attempt."""
+    uc0, uf0, st0 = _eager(subproblem)
+    graphs(CAP)
+    attempts = []
+
+    class Refusing(StandIn):
+        def capture(self, fn):
+            attempts.append(fn)
+            raise RuntimeError("operation not permitted when stream is capturing")
+
+    monkeypatch.setattr(ipm, "_new_graph", Refusing)
+    cqp, bounds, kw = subproblem
+    captures = tracing.COUNTS["ipm_graph_capture"]
+    for _ in range(4):
+        uc, uf, st = ipm.ipm_core(cqp, bounds, **kw)
+        assert torch.equal(uc, uc0) and torch.equal(uf, uf0)
+        assert all(torch.equal(st[name], st0[name]) for name in st0)
+    assert len(attempts) == 1 and not ipm._CACHE.graphs
+    assert tracing.COUNTS["ipm_graph_capture"] == captures
 
 
 def test_tally_holds_a_capture_and_a_replay_counts_it_once():
@@ -319,7 +339,7 @@ def test_capture_counts_nothing_and_each_replay_counts_once(subproblem, graphs, 
     finally:
         ipm._ChunkGraph.__init__ = real_init
     assert captured == [[0, 0, 0, 1, 0]]  # the capture: the count of captures alone
-    graph = next(iter(ipm._GRAPHS.values()))
+    graph = next(iter(ipm._CACHE.graphs.values()))
     assert graph.chunk.launches == {k1: k, k2: k} and not graph.layout.launches
     replays = -(-CAP // k)
     assert [a - b for a, b in zip(read(), before)] == [
