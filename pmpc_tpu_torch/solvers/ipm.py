@@ -30,8 +30,8 @@ Python loop that runs while any lane is active; a lane that is not active
 keeps its state unchanged (``jax.vmap`` of ``lax.while_loop`` selects the
 same way), on top of the body's own freeze. The loop test costs one host
 sync per iteration. On the card's box-only path the loop runs as chunks of
-k iterations captured once as a CUDA graph and replayed, with a host test
-between replays at most (`_ChunkGraph`); the arithmetic is the same.
+k iterations captured once as a CUDA graph (`graphs`) and replayed, with a
+host test between replays at most (`_ChunkGraph`); the arithmetic is the same.
 
 Under a particle group (`particles.particle_scope`) the (B, M, ...) arrays
 hold this rank's particles: the flat constraint vector's consensus rows are
@@ -42,13 +42,12 @@ non-finite test, the loop test) is completed over the group.
 
 from __future__ import annotations
 
-import collections
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..ops import chol_inv
+from .. import graphs
 from ..ops.linalg import spd_apply, spd_factor
 from ..particles import group as particle_group, pany, pfirst, pmax, pmean, psum, \
     split_max, split_min, split_sum
@@ -725,13 +724,11 @@ def _chunk(body, state: IPMState, active: torch.Tensor, k: int, cap: int):
 
 
 def _engages(device_type: str, opts: _Opts, group) -> bool:
-    """Whether the loop runs as captured chunks (`_ChunkGraph`): on a CUDA
-    device, on the box-only path (control bounds alone), with no particle
-    group (its all-reduces stay eager) and no central-path target (the
-    logbarrier smoothing, whose centering tail runs eager)."""
-    return (device_type == "cuda" and opts.has_u
-            and not (opts.has_x or opts.has_soc or opts.has_ex)
-            and group is None and opts.mu_target <= 0)
+    """Whether the loop runs as captured chunks (`_ChunkGraph`): where
+    `graphs.engages` holds, with control bounds alone and no central-path
+    target (the logbarrier smoothing's centering tail runs eager)."""
+    return (graphs.engages(device_type, group) and opts.has_u
+            and not (opts.has_x or opts.has_soc or opts.has_ex) and opts.mu_target <= 0)
 
 
 # A chunk's iterations, from B M (lanes x particles, the device work of one
@@ -760,145 +757,47 @@ def _chunk_len(lanes: int, cap: int) -> int:
     return -(-cap // -(-cap // kmax))
 
 
-class _GraphCache:
-    """Captured graphs by key, at most ``size``, the least recently used
-    dropped first. A key is captured the second time it is met, so a shape
-    met once never pays for a capture; a key whose capture raised is not
-    tried again."""
-
-    SEEN_MAX = 64
-
-    def __init__(self, size: int):
-        self.size = size
-        self.graphs = collections.OrderedDict()  # key -> graph
-        self.seen = collections.OrderedDict()  # keys met once and not captured
-        self.refused = set()  # keys whose capture raised
-
-    def get(self, key, capture):
-        """The graph of ``key``, made by ``capture()`` at the key's second
-        sighting; None where the caller runs eagerly."""
-        graph = self.graphs.get(key)
-        if graph is not None:
-            self.graphs.move_to_end(key)
-            return graph
-        if key in self.refused:
-            return None
-        if self.seen.pop(key, None) is None:
-            self.seen[key] = True
-            if len(self.seen) > self.SEEN_MAX:
-                self.seen.popitem(last=False)
-            return None
-        try:
-            graph = capture()
-        except Exception:  # noqa: BLE001 - any refusal of the capture: run eager
-            self.refused.add(key)
-            return None
-        self.graphs[key] = graph
-        if len(self.graphs) > self.size:
-            self.graphs.popitem(last=False)
-        return graph
-
-
-GRAPH_CACHE = 4  # captured chunks kept
-_CACHE = _GraphCache(GRAPH_CACHE)
+GRAPH_CACHE = 4  # captured chunks kept, for the process (`graphs` says why)
+_CACHE = graphs.Cache(GRAPH_CACHE, "ipm.capture", "ipm_graph_capture")
 
 
 def _graph_for(ins: list, state: IPMState, opts: _Opts, cap: int):
     """The captured chunk that runs this call's loop, or None for the eager
-    loop. The key: shapes and dtypes of the inputs, device, options, chunk
-    length, cap, matmul precision."""
+    loop; keyed by the inputs (`graphs.key`), options, chunk length and cap."""
     cqp = CondensedQP(*ins[:len(CondensedQP._fields)])
     if not _engages(cqp.qf.device.type, opts, particle_group()):
         return None
     k = _chunk_len(cqp.Hff.shape[0] * cqp.M, cap)
-    key = (tuple(None if t is None else (tuple(t.shape), t.dtype) for t in ins),
-           cqp.qf.device, opts, k, cap, torch.get_float32_matmul_precision())
-    return _CACHE.get(key, lambda: _ChunkGraph(ins, state, opts, k, cap))
-
-
-class _CudaGraph:
-    """`torch.cuda.CUDAGraph` behind the two calls `_Captured` makes."""
-
-    def __init__(self):
-        self.graph = torch.cuda.CUDAGraph()
-
-    def capture(self, fn):
-        stream = torch.cuda.current_stream()
-        try:
-            with torch.cuda.graph(self.graph):
-                fn()
-        finally:
-            # a capture that fails in its end leaves the capture stream current
-            torch.cuda.set_stream(stream)
-
-    def replay(self):
-        self.graph.replay()
-
-
-_new_graph = _CudaGraph
-
-
-class _Captured:
-    """``fn`` captured as a graph, with the kernel launches it recorded
-    (`chol_inv.tally`), which the launch counters take at each replay."""
-
-    def __init__(self, fn):
-        self.graph = _new_graph()
-        with chol_inv.tally() as self.launches:
-            self.graph.capture(fn)
-
-    def replay(self):
-        self.graph.replay()
-        chol_inv.count_replay(self.launches)
-
-
-def _copy_all(dst, src) -> None:
-    """``d.copy_(s)`` for each pair, as one multi-tensor copy a dtype."""
-    groups = {}
-    for d, s in zip(dst, src):
-        ds, ss = groups.setdefault(d.dtype, ([], []))
-        ds.append(d)
-        ss.append(s)
-    for ds, ss in groups.values():
-        torch._foreach_copy_(ds, ss)
+    return _CACHE.get(graphs.key(ins, opts, k, cap),
+                      lambda: _ChunkGraph(ins, state, opts, k, cap))
 
 
 class _ChunkGraph:
-    """k iterations of the box IPM (`_chunk`) captured once as a graph, and
-    replayed in place of the eager loop.
-
-    The graphs read static copies of the inputs and of the state. One, run
-    once a call, derives the constraint layout from the inputs (`_core`);
-    the other runs a chunk and writes its final state back into the state's
-    copies, so replays chain. A call copies its inputs and its starting
-    point in, replays the chunk at most ceil(cap / k) times, testing on the
-    host between replays whether any lane is active (no test when k covers
-    the cap), and hands back copies of the state."""
+    """k iterations of the box IPM (`_chunk`) captured over static copies of
+    the inputs and the state, replayed in place of the eager loop: a layout
+    graph (`_core`) once a call, then at most ceil(cap / k) chunks, which
+    write their state back into its copies, with a host test between (none
+    where k covers the cap). A call hands back copies of the state."""
 
     def __init__(self, ins: list, state: IPMState, opts: _Opts, k: int, cap: int):
-        self.ins = [None if t is None else t.clone() for t in ins]
-        self.state = IPMState(*(t.clone() for t in state))
         self.active = torch.zeros_like(state.done)  # the lanes active after a chunk
         self.k, self.cap = k, cap
-        n = len(CondensedQP._fields)
-        cqp, bounds = CondensedQP(*self.ins[:n]), BoxBounds(*self.ins[n:-1])
-        fns = {}
+        n, m = len(CondensedQP._fields), len(ins)
 
-        def layout():
-            fns["body"] = _core(cqp, bounds, self.ins[-1], None, None, opts)[1]
+        def layout(*s):  # the inputs and the state, the chunk's body from them
+            return _core(CondensedQP(*s[:n]), BoxBounds(*s[n:m - 1]), s[m - 1], None, None,
+                         opts)[1]
 
         def chunk():
-            new, active = _chunk(fns["body"], self.state, _active(self.state, cap), k, cap)
-            _copy_all((*self.state, self.active), (*new, active))
+            new, active = _chunk(self.layout.out, self.state, _active(self.state, cap), k, cap)
+            graphs.copy_in((*self.state, self.active), (*new, active))
 
-        with span("ipm.capture"):
-            self.layout, self.chunk = _Captured(layout), _Captured(chunk)
-        COUNTS["ipm_graph_capture"] += 1
+        self.layout = graphs.Captured(layout, (*ins, *state))
+        self.state = IPMState(*self.layout.ins[m:])
+        self.chunk = graphs.Captured(chunk)
 
     def run(self, ins: list, state: IPMState) -> IPMState:
-        pairs = [(b, t) for b, t in zip((*self.ins, *self.state), (*ins, *state))
-                 if b is not None]
-        _copy_all(*zip(*pairs))
+        self.layout.copy_in((*ins, *state))
         self.layout.replay()
         for r in range(-(-self.cap // self.k)):
             if r and not pany(self.active):
@@ -907,7 +806,7 @@ class _ChunkGraph:
                 self.chunk.replay()
             COUNTS["ipm_graph_replay"] += 1
         out = IPMState(*(torch.empty_like(t) for t in self.state))
-        _copy_all(out, self.state)
+        graphs.copy_in(out, self.state)
         return out
 
 

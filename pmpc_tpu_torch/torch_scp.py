@@ -27,11 +27,11 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from . import graphs
 from .dynamics import linearize
 from .particles import global_particles, pany, pfirst, pmax, pmean, psum, \
     particle_scope
-from .solvers.ipm import BoxBounds, _Captured, _copy_all, _GraphCache, ipm_core, \
-    layout_socs
+from .solvers.ipm import BoxBounds, ipm_core, layout_socs
 from .solvers.priccati import priccati_consensus_solve
 from .solvers.reduced import assemble_condensed, recover_XU, solve_eq, \
     update_condensed_linear
@@ -592,64 +592,40 @@ def _sel_tree(cond, a, b):
 
 def _lin_engages(device_type: str, method: str, group) -> bool:
     """Whether a fresh sub-iteration replays its linearization and condensed
-    assembly as a captured graph (`_LinGraphs`): on a CUDA device, with the
-    condensed method, and with no particle group (the assembly's `psum` is
-    then an all-reduce, kept eager)."""
-    return device_type == "cuda" and method == "condensed" and group is None
+    assembly as a captured graph (`_LinGraphs`): with the condensed method,
+    where `graphs.engages` holds."""
+    return method == "condensed" and graphs.engages(device_type, group)
 
 
-LIN_GRAPH_CACHE = 2  # captured graphs a solver keeps
+LIN_GRAPH_CACHE = 2  # captured graphs a solver keeps (`graphs` says why)
 
 
 class _LinGraphs:
     """One built solver's ``lin_assemble(*ins) -> (f, fx, fu, cqp)``, run
     eagerly or, where the engage rule holds, as captured CUDA graphs
-    (`_LinGraph`), cached by key: the inputs' shapes and dtypes (None for
-    an absent input), the device and the matmul precision. A key whose
-    capture raised (a dynamics function that reads the device on the host,
-    say) runs eagerly for the rest of the solver's life.
+    (`graphs.Captured`) keyed by `graphs.key`; a key whose capture raised (a
+    dynamics that reads the device on the host, say) runs eagerly for the
+    solver's life.
 
-    A replay writes its outputs over those of the replay before: the caller
-    holds them for one SCP round. Their holders are the subproblem solve
-    (the IPM's graph copies the QP into its own inputs, the eager IPM and
-    `solve_eq` read it within the round), `recover_XU` (fresh X, U) and the
-    round's ``relin_stale`` sub-iterations (`update_condensed_linear` keeps
-    its map and Hessian blocks). No carry, ``collect_stats`` row or
-    ``return_state`` tuple holds any of them."""
+    A replay writes its outputs over the last replay's, so the caller holds
+    them for one SCP round: the subproblem solve (the IPM's graph copies the
+    QP in, the eager IPM and `solve_eq` read it within the round),
+    `recover_XU` (fresh X, U) and the round's stale sub-iterations
+    (`update_condensed_linear` keeps its map and Hessian blocks). No carry,
+    ``collect_stats`` row or ``return_state`` tuple holds any of them."""
 
     def __init__(self, fn):
         self.fn = fn
-        self.cache = _GraphCache(LIN_GRAPH_CACHE)
+        self.cache = graphs.Cache(LIN_GRAPH_CACHE, "scp.capture", "lin_graph_capture")
 
     def __call__(self, ins: tuple, engage: bool):
-        graph = None
-        if engage:
-            key = (tuple(None if t is None else (tuple(t.shape), t.dtype) for t in ins),
-                   ins[0].device, torch.get_float32_matmul_precision())
-            graph = self.cache.get(key, lambda: _LinGraph(self.fn, ins))
-        return self.fn(*ins) if graph is None else graph.run(ins)
-
-
-class _LinGraph:
-    """``fn`` captured once as a graph over static copies of its inputs, and
-    replayed in place of the eager call: a run copies the inputs in (one
-    multi-tensor copy a dtype) and replays. Its outputs are the tensors the
-    capture made, which each replay overwrites."""
-
-    def __init__(self, fn, ins: tuple):
-        self.ins = [None if t is None else t.clone() for t in ins]
-
-        def run():
-            self.out = fn(*self.ins)
-
-        with span("scp.capture"):
-            self.graph = _Captured(run)
-        COUNTS["lin_graph_capture"] += 1
-
-    def run(self, ins: tuple):
+        graph = self.cache.get(graphs.key(ins), lambda: graphs.Captured(self.fn, ins)) \
+            if engage else None
+        if graph is None:
+            return self.fn(*ins)
         with span("scp.linearize"):
-            _copy_all(*zip(*[(b, t) for b, t in zip(self.ins, ins) if b is not None]))
+            graph.copy_in(ins)
         with span("scp.assemble"):
-            self.graph.replay()
+            out = graph.replay()
         COUNTS["lin_graph_replay"] += 1
-        return self.out
+        return out

@@ -20,11 +20,11 @@ directly. Spans are recorded from one thread: the solver's.
 `COUNTS` are integers counted whether or not a recording is open:
 ``host_read`` is the number of loop tests that read the device's answer on
 the host (`particles.pany`); ``ipm_graph_capture`` and ``ipm_graph_replay``
-the captures and replays of the box IPM's chunks of iterations as CUDA
-graphs (`solvers.ipm._ChunkGraph`); ``lin_graph_capture`` and
-``lin_graph_replay`` those of a fresh SCP sub-iteration's linearization and
-condensed assembly (`torch_scp._LinGraph`), so replays over fresh SCP rounds
-is the share of rounds that took the graph.
+the captures (`graphs.Cache`) and replays of the box IPM's chunks of
+iterations as CUDA graphs (`solvers.ipm._ChunkGraph`); ``lin_graph_capture``
+and ``lin_graph_replay`` those of a fresh SCP sub-iteration's linearization
+and condensed assembly (`torch_scp._LinGraphs`), so replays over fresh SCP
+rounds is the share of rounds that took the graph.
 
 Where the box IPM runs as a CUDA graph, a replay is one ``ipm.iter`` span
 with ``n`` the chunk's iterations; ``ipm.factor``, ``ipm.residual`` and

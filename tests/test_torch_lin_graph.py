@@ -1,82 +1,35 @@
 """A fresh SCP sub-iteration's linearization and condensed assembly as CUDA
-graphs (`torch_scp._LinGraphs`, `torch_scp._LinGraph`):
-
-- the graph path engages only on a CUDA device, with the condensed method
-  and without a particle group (a table), and never on the CPU;
-- a key is captured at its second sighting and not before, the cache keeps
-  `LIN_GRAPH_CACHE` graphs a solver, and a key whose capture raised runs
-  eagerly from then on, with the eager results;
-- the solver on the graph path (here a stand-in replays the captured
-  Python) gives the eager solver's f, fx, fu, every `CondensedQP` field,
-  X, U and info bit for bit, with and without per-particle parameters, with
-  and without ``lin_cost_fn``, and with ``relin_stale=1``, while each
-  replay poisons the outputs of the one before (nothing may read them past
-  the next replay);
-- a call counts one capture and a replay for every fresh SCP round after
-  the first sighting, and the Riccati routes never reach the graph;
-- on the card (the ``cuda`` marker): graph and eager agree bit for bit on
-  the headline batch (B = 64, M = 32, N = 30, f32) and on the pod-scale
-  configuration (B = 4, M = 64, N = 50, f64): U, X, the SCP iteration
-  counts and the IPM iteration counts of every subproblem; a call replays
-  once for each fresh SCP round; the profiler's K1 (headline) and K3
-  (pod-scale) events equal their counters' increase; a dynamics that
-  synchronizes the device fails its capture and runs eagerly.
-
-The card cases run with
+graphs (`torch_scp._LinGraphs`); the mechanism under
+them is held in `test_torch_graphs.py`. The linearization's half of the
+engage rule; the solver on the graph path (a stand-in replays the captured
+Python and poisons the last replay's outputs, which nothing may read past
+the next replay) against the eager solver bit for bit, f, fx, fu, every
+`CondensedQP` field, X, U and info, with params, ``lin_cost_fn``,
+``relin_stale=1``, unbounded, a refused capture; one replay a fresh SCP
+round; the Riccati routes never reach the graph; the spans. On the card
+(the ``cuda`` marker): graph against eager bit for bit on the headline and
+pod-scale programs, the profiler's K1 and K3 events against their
+counters, a synchronizing dynamics that stays eager:
 ``python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_lin_graph.py``.
 """
-
-import re
 
 import pytest
 import torch
 
 import pmpc_tpu_torch.torch_scp as torch_scp
-from pmpc_tpu_torch import tracing
-from pmpc_tpu_torch.flagship import HEADLINE_KW, dubins, flagship, podscale, stack_varied
+from pmpc_tpu_torch import graphs, tracing
+from pmpc_tpu_torch.flagship import dubins
 from pmpc_tpu_torch.ops import chol_inv
-from pmpc_tpu_torch.solvers import ipm
 from pmpc_tpu_torch.solvers.reduced import CondensedQP
-from pmpc_tpu_torch.torch_scp import _LinGraphs, _lin_engages
+from pmpc_tpu_torch.torch_scp import _lin_engages
+from torch_graph_standins import K1, K3, PROGRAMS, Refusing, StandIn, cuda, headline, \
+    same, small_flagship, solve_recording_ipm, traced_call  # noqa: F401
 
 torch.set_num_threads(2)
 
 
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
-    return torch.device("cuda")
-
-
 def _counts():
     return tracing.COUNTS["lin_graph_capture"], tracing.COUNTS["lin_graph_replay"]
-
-
-class StandIn:
-    """A CUDA graph's stand-in on the CPU: the capture runs the captured
-    Python once, a replay runs it again (its launches and spans not
-    recorded, as a replay runs no Python)."""
-
-    def capture(self, fn):
-        self.fn = fn
-        fn()
-
-    def replay(self):
-        with chol_inv.tally(), tracing.recording():
-            self.fn()
-
-
-class Refusing(StandIn):
-    """A capture that raises once it has run, as a capture that meets a
-    host read raises at its end; ``attempts`` counts the captures tried."""
-
-    attempts = 0
-
-    def capture(self, fn):
-        Refusing.attempts += 1
-        fn()
-        raise RuntimeError("operation not permitted when stream is capturing")
 
 
 def _poison(out):
@@ -88,23 +41,21 @@ def _poison(out):
 
 
 @pytest.fixture
-def graphs(monkeypatch):
-    """``graphs(graph=StandIn)`` puts the linearization and assembly on the
-    graph path on the CPU: the engage rule passes where it would on a card
-    (the real rule with the device taken for CUDA), ``graph`` takes the
-    graph's place, and each replay first poisons the outputs of the replay
-    before."""
+def graph_path(monkeypatch):
+    """``graph_path(graph=StandIn)``: the real engage rule with the device
+    taken for CUDA, ``graph`` in the graph's place, and each replay first
+    poisons the outputs of the replay before."""
     def engage(graph=StandIn):
         monkeypatch.setattr(torch_scp, "_lin_engages",
                             lambda device_type, method, group: _lin_engages("cuda", method, group))
-        monkeypatch.setattr(ipm, "_new_graph", graph)
-        real_run = torch_scp._LinGraph.run
+        monkeypatch.setattr(graphs, "CudaGraph", graph)
+        real_copy_in = graphs.Captured.copy_in
 
-        def run(self, ins):
+        def copy_in(self, ins):  # before the copy: an output may alias an input
             _poison(self.out)
-            return real_run(self, ins)
+            real_copy_in(self, ins)
 
-        monkeypatch.setattr(torch_scp._LinGraph, "run", run)
+        monkeypatch.setattr(graphs.Captured, "copy_in", copy_in)
 
     return engage
 
@@ -125,82 +76,15 @@ def recorded(monkeypatch):
     return rec
 
 
-# -- the engage rule and the cache ------------------------------------------------
-
-@pytest.mark.parametrize("device_type", ["cuda", "cpu"])
-@pytest.mark.parametrize("method", ["condensed", "riccati", "priccati"])
-@pytest.mark.parametrize("group", [None, object()], ids=["no_group", "group"])
-def test_engage_rule(device_type, method, group):
-    engages = device_type == "cuda" and method == "condensed" and group is None
-    assert _lin_engages(device_type, method, group) is engages
-
-
-def _toy(calls):
-    """A `_LinGraphs` over a function that counts its calls and returns
-    (f, fx, fu, cqp)-shaped outputs: sums of its inputs."""
-    def fn(a, b):
-        calls.append(a.shape)
-        s = a.sum() + b.sum()
-        return s[None], (2 * s)[None], (3 * s)[None], CondensedQP(*[s[None]] * 12)
-
-    return _LinGraphs(fn)
-
-
-def test_a_key_is_captured_at_its_second_sighting(monkeypatch):
-    monkeypatch.setattr(ipm, "_new_graph", StandIn)
-    calls = []
-    lin = _toy(calls)
-    a, b = torch.ones(3), torch.ones(2)
-    c0, r0 = _counts()
-    out = lin((a, b), True)
-    assert _counts() == (c0, r0) and not lin.cache.graphs and out[0].item() == 5
-    out = lin((a, b), True)  # the capture, then its first replay
-    assert _counts() == (c0 + 1, r0 + 1) and len(lin.cache.graphs) == 1
-    out = lin((2 * a, b), True)  # the same key: a replay over the new inputs
-    assert _counts() == (c0 + 1, r0 + 2) and out[0].item() == 8
-    lin((a, b), False)  # not engaged: eager, nothing counted
-    assert _counts() == (c0 + 1, r0 + 2)
-
-
-def test_the_cache_keeps_lin_graph_cache_graphs(monkeypatch):
-    monkeypatch.setattr(ipm, "_new_graph", StandIn)
-    lin = _toy([])
-    sizes = range(1, torch_scp.LIN_GRAPH_CACHE + 2)
-    c0, _ = _counts()
-    for n in sizes:
-        for _ in range(2):
-            lin((torch.ones(n), torch.ones(2)), True)
-    assert _counts()[0] == c0 + len(sizes)
-    assert len(lin.cache.graphs) == torch_scp.LIN_GRAPH_CACHE
-    assert all(key[0][0][0] != (1,) for key in lin.cache.graphs)  # the oldest key went first
-    lin((torch.ones(1), torch.ones(2)), True)  # dropped: met anew, not captured
-    assert _counts()[0] == c0 + len(sizes)
-
-
-def test_a_refused_capture_runs_eager_from_then_on(monkeypatch):
-    monkeypatch.setattr(ipm, "_new_graph", Refusing)
-    calls = []
-    lin = _toy(calls)
-    a, b = torch.ones(3), torch.ones(2)
-    Refusing.attempts = 0
-    c0, r0 = _counts()
-    outs = [lin((k * a, b), True)[0].item() for k in (1, 2, 3, 4)]
-    assert outs == [5.0, 8.0, 11.0, 14.0]
-    assert Refusing.attempts == 1 and _counts() == (c0, r0) and not lin.cache.graphs
-    assert lin.cache.refused
-    # the failed capture ran the function once, and its sub-iteration again
-    assert len(calls) == 5
+@pytest.mark.parametrize("method,engages", [
+    ("condensed", True), ("riccati", False), ("priccati", False)])
+def test_engage_rule(method, engages):
+    """The linearization's own half, on a CUDA device with no particle
+    group (the shared half: `test_torch_graphs.py`): the condensed method."""
+    assert _lin_engages("cuda", method, None) is engages
 
 
 # -- the solver on the graph path -------------------------------------------------
-
-def _flagship(B=3, **kw):
-    """The headline program (box controls, AA, 8 IPM iterations a
-    subproblem) cut to M = 4, N = 8, f64, over B lanes."""
-    solver, data = flagship(M=4, N=8, Nc=2, dtype=torch.float64, device="cpu",
-                            **dict(HEADLINE_KW, **kw))
-    return solver, stack_varied(data, B, scale=0.3)
-
 
 def _dubins_p(x, u, p):
     return dubins(x, u, (p[0], p[1], 0.3))
@@ -228,25 +112,23 @@ def _lin_cost(X, U, data):
 
 
 CASES = {
-    "plain": lambda: _flagship(),
-    "params": lambda: _with_params(*_flagship()),
-    "lin_cost_fn": lambda: _flagship(lin_cost_fn=_lin_cost),
-    "relin_stale": lambda: _flagship(relin_stale=1),
-    "unbounded": lambda: _unbounded(*_flagship()),
+    "plain": lambda: small_flagship(),
+    "params": lambda: _with_params(*small_flagship()),
+    "lin_cost_fn": lambda: small_flagship(lin_cost_fn=_lin_cost),
+    "relin_stale": lambda: small_flagship(relin_stale=1),
+    "unbounded": lambda: _unbounded(*small_flagship()),
 }
 
 
 def _same_lin(a, b):
     assert len(a) == len(b)
+    names = ("f", "fx", "fu", *CondensedQP._fields)
     for r, (x, y) in enumerate(zip(a, b)):
-        for name, s, t in zip(("f", "fx", "fu"), x[:3], y[:3]):
-            assert torch.equal(s, t), (r, name)
-        for name, s, t in zip(CondensedQP._fields, x[3], y[3]):
-            assert s.dtype == t.dtype and torch.equal(s, t), (r, name)
+        same((*x[:3], *x[3]), (*y[:3], *y[3]), [(r, n) for n in names])
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_graph_path_matches_eager(case, graphs, recorded):
+def test_graph_path_matches_eager(case, graph_path, recorded):
     """Each fresh sub-iteration's f, fx, fu and QP, and the call's X, U and
     info, on the graph path (two calls: the capture falls in the first's
     second round) against the eager solver, bit for bit."""
@@ -254,7 +136,7 @@ def test_graph_path_matches_eager(case, graphs, recorded):
     X0, U0, info0 = solver(data)
     eager = list(recorded)
     recorded.clear()
-    graphs()
+    graph_path()
     c0, r0 = _counts()
     for _ in range(2):
         X, U, info = solver(data)
@@ -267,12 +149,12 @@ def test_graph_path_matches_eager(case, graphs, recorded):
     assert _counts() == (c0 + 1, r0 + 2 * len(eager) - 1)  # len(eager): the rounds
 
 
-def test_collect_stats_and_return_state_match_eager(graphs):
+def test_collect_stats_and_return_state_match_eager(graph_path):
     """``collect_stats`` (every round's IPM stats) and ``return_state`` (the
     IPM's warm tuple) on the graph path against the eager solver."""
-    solver, data = _flagship(collect_stats=True, return_state=True)
+    solver, data = small_flagship(collect_stats=True, return_state=True)
     _, U0, info0 = solver(data)
-    graphs()
+    graph_path()
     _, U, info = solver(data)
     assert torch.equal(U, U0)
     for name, st in info0["scan_stats"].items():
@@ -281,10 +163,10 @@ def test_collect_stats_and_return_state_match_eager(graphs):
         assert torch.equal(a, b)
 
 
-def test_a_refused_capture_gives_the_eager_solve(graphs):
-    solver, data = _flagship()
+def test_a_refused_capture_gives_the_eager_solve(graph_path):
+    solver, data = small_flagship()
     X0, U0, info0 = solver(data)
-    graphs(Refusing)
+    graph_path(Refusing)
     Refusing.attempts = 0
     c0, r0 = _counts()
     for _ in range(2):
@@ -295,32 +177,21 @@ def test_a_refused_capture_gives_the_eager_solve(graphs):
 
 
 @pytest.mark.parametrize("method", ["riccati", "priccati"])
-def test_riccati_routes_never_reach_the_graph(graphs, method):
-    solver, data = _flagship(method=method)
-    graphs()
+def test_riccati_routes_never_reach_the_graph(graph_path, method):
+    solver, data = small_flagship(method=method)
+    graph_path()
     c0, r0 = _counts()
     for _ in range(2):
         solver(data)
     assert _counts() == (c0, r0)
 
 
-def test_cpu_never_captures(monkeypatch):
-    """The CPU runs eager under the real engage rule, even with a graph
-    object at hand."""
-    monkeypatch.setattr(ipm, "_new_graph", StandIn)
-    solver, data = _flagship()
-    c0, r0 = _counts()
-    for _ in range(3):
-        solver(data)
-    assert _counts() == (c0, r0)
-
-
-def test_spans_of_a_capture_and_a_replay(graphs):
+def test_spans_of_a_capture_and_a_replay(graph_path):
     """The capture's eager spans sit inside ``scp.capture``; a replay is an
     ``scp.linearize`` (the copy in) and an ``scp.assemble`` (the replay)
     with nothing inside, both under ``scp.iter``."""
-    solver, data = _flagship()
-    graphs()
+    solver, data = small_flagship()
+    graph_path()
     with tracing.recording() as rec:
         solver(data)
     name, parent = (lambda s: s[0]), (lambda s: rec[s[3]][0] if s[3] >= 0 else None)
@@ -337,37 +208,6 @@ def test_spans_of_a_capture_and_a_replay(graphs):
 
 # -- on the card ------------------------------------------------------------------
 
-def _headline(dev):
-    solver, data = flagship(dtype=torch.float32, device=dev, **HEADLINE_KW)
-    return solver, stack_varied(data, 64)
-
-
-def _pod(dev):
-    """BASELINE config 5 as the benchmark's ``dubins_m64_n50_f64`` runs it
-    (f64, res_tol 1e-3, 12 IPM iterations a subproblem), over 4 lanes."""
-    solver, data = podscale(dtype=torch.float64, device=dev, res_tol=1e-3)
-    return solver, stack_varied(data, 4, scale=0.02)
-
-
-PROGRAMS = {"headline": _headline, "pod": _pod}
-
-
-def _solve_recording_ipm(solver, data, monkeypatch):
-    """(X, U, SCP iterations, the IPM iterations of each subproblem (S, B))."""
-    its, real = [], torch_scp.ipm_core
-
-    def record(*args, **kw):
-        uc, uf, st = real(*args, **kw)
-        its.append(st["iters"].clone())
-        return uc, uf, st
-
-    monkeypatch.setattr(torch_scp, "ipm_core", record)
-    X, U, info = solver(data)
-    torch.cuda.synchronize()
-    monkeypatch.setattr(torch_scp, "ipm_core", real)
-    return X, U, info["iters"], torch.stack(its)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("program", list(PROGRAMS))
 def test_graph_matches_eager_on_the_card(cuda, monkeypatch, program):
@@ -377,18 +217,14 @@ def test_graph_matches_eager_on_the_card(cuda, monkeypatch, program):
     solver, data = PROGRAMS[program](cuda)
     solver(data)  # the first sighting, then the capture
     c0, r0 = _counts()
-    X, U, its, ipm_its = _solve_recording_ipm(solver, data, monkeypatch)
+    X, U, its, ipm_its = solve_recording_ipm(solver, data, monkeypatch)
     assert _counts() == (c0, r0 + int(its.max()))
     monkeypatch.setattr(torch_scp, "_lin_engages", lambda *a: False)
-    X0, U0, its0, ipm_its0 = _solve_recording_ipm(solver, data, monkeypatch)
+    X0, U0, its0, ipm_its0 = solve_recording_ipm(solver, data, monkeypatch)
     assert _counts() == (c0, r0 + int(its.max()))
     assert torch.equal(its, its0)
     assert torch.equal(ipm_its, ipm_its0)
     assert torch.equal(U, U0) and torch.equal(X, X0)
-
-
-K1 = re.compile(r"\bchol_inv_kernel<[^,<>]+,\s*true\s*,\s*32\s*,")
-K3 = re.compile(r"\bchol_inv_kernel<[^,<>]+,\s*true\s*,\s*64\s*,")
 
 
 @pytest.mark.cuda
@@ -397,17 +233,10 @@ K3 = re.compile(r"\bchol_inv_kernel<[^,<>]+,\s*true\s*,\s*64\s*,")
 def test_profiler_counts_match_with_both_graphs(cuda, program, kernel, route):
     """Over a call on both graph paths, the K1 (headline) or K3 (pod-scale)
     events in the profiler's device trace are their counter's increase."""
-    solver, data = PROGRAMS[program](cuda)
-    solver(data)  # the captures, outside the trace, as the benchmark's warm-up
-    torch.cuda.synchronize()
-    n0, (c0, r0) = chol_inv.LAUNCHES[route], _counts()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        solver(data)
-        torch.cuda.synchronize()
-    events = [e for e in prof.profiler.kineto_results.events()
-              if e.device_type() == torch.autograd.DeviceType.CUDA and kernel.search(e.name())]
+    events, (launches, counts) = traced_call(*PROGRAMS[program](cuda), kernel)
+    c0, r0 = counts["lin_graph_capture"], counts["lin_graph_replay"]
     assert _counts()[0] == c0 and _counts()[1] > r0
-    assert len(events) == chol_inv.LAUNCHES[route] - n0 > 0
+    assert len(events) == chol_inv.LAUNCHES[route] - launches[route] > 0
 
 
 @pytest.mark.cuda
@@ -418,7 +247,7 @@ def test_a_synchronizing_dynamics_runs_eager_on_the_card(cuda):
         torch.cuda.synchronize()
         return dubins(x, u)
 
-    solver, data = _headline(cuda)
+    solver, data = headline(cuda)
     X0, U0, info0 = solver(data)
     solver = torch_scp.build_scp_solver(synced, **solver.build_args)
     c0, r0 = _counts()
