@@ -17,7 +17,13 @@ happens and the run exits non-zero before the two JSON lines:
    n = 97 refused; then each kernel timed with CUDA events at its main
    shape (K2 also at (2048, 50, 50)) beside its plain version, the library
    calls and its bound, and K2 at (64, 10, 10) beside the launch of a kernel
-   that does nothing;
+   that does nothing; then K5 (`hessian_apply`, the box IPM's factored
+   Hessian apply) at the three benchmark cells' shapes, B M = 2,048 and
+   32,768 at N = 30 in f32 and 16,384 at N = 50 in f64, against the formula
+   in f64, and timed with CUDA events over 50 launches beside its plain
+   version, the formula with the consensus sum on cuBLAS (`H_apply_factored`
+   before K5) and its bound; phases 5 and 6 hold its launches to one a
+   box-IPM iteration (K1's, K3's);
 4. the accuracy-probe config in f32 against the JAX package's f64 answer
    (benchmarks/accuracy_ref_u64.npy), to 1e-3;
 5. the headline program: B=64 scenarios, M=32, N=30, Nc=5, f32, Anderson
@@ -212,7 +218,7 @@ from pmpc_tpu_torch.flagship import (EXP_KAPPA, EXP_VMAX, HEADLINE_KW, KEEP_IN_C
                                      SOC_R3, baseline_config, cvar_batch, dubins,
                                      extras_batch, flagship, flagship_subproblem, long_horizon,
                                      long_horizon_subproblem, podscale, probe, stack_varied)
-from pmpc_tpu_torch.ops import chol_inv
+from pmpc_tpu_torch.ops import chol_inv, hessian_apply
 from pmpc_tpu_torch.solvers import barrier, compose, ipm
 from pmpc_tpu_torch.solvers.compose import (COST_ANCHOR_EPS, composed_cone_solve,
                                             composed_solve_batch_device)
@@ -268,6 +274,12 @@ NV_LOG, NV_EXP = 213, 73  # the composed programs' widths in phases 19 and 20
 LBFGS_ITERS, COST_ITERS = 8000, 1000  # phase 21: L-BFGS iterations (logbarrier, user cost)
 NEWTON_SMOOTH = 40  # phase 21: Newton steps of the references
 HOST_IT = 5  # phase 23 (a): SCP iterations of the host-against-fused pair
+# K5 (hessian_apply): the cells' shapes (B, M, N, dtype) at xdim 4, udim 2, Nc 5,
+# and its tolerance against the formula in f64, relative to the largest entry
+# (sums of ~200 terms of size ~1 in f32)
+K5_SHAPES = ((64, 32, 30, torch.float32), (1024, 32, 30, torch.float32),
+             (256, 64, 50, torch.float64))
+K5_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 FAILED = []
 CHECKED = set()  # (adds a diagonal, batch, n, dtype) held against plain
 
@@ -500,6 +512,80 @@ def phase_kernels(dev, card):
     return results
 
 
+def k5_inputs(B, M, N, dtype, dev, xdim=4, udim=2, Nc=5, seed=0):
+    """A condensed QP of random dynamics (stable, fx = I + 0.05 N(0, 1)),
+    with slew terms and particle weights, and a random iterate:
+    (Ft, Qt, Rt, sl_reg, sl_reg0, uc, uf), K5's operands."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev, dtype=dtype)
+    u = lambda *s: torch.rand(*s, generator=g, device=dev, dtype=dtype) + 0.5
+    lead = (B, M)
+    eye = lambda d: torch.eye(d, dtype=dtype, device=dev)
+    G = r(*lead, N, xdim, xdim)
+    cqp = assemble_condensed(
+        r(*lead, xdim), r(*lead, N, xdim), eye(xdim) + 0.05 * r(*lead, N, xdim, xdim),
+        r(*lead, N, xdim, udim), r(*lead, N, xdim), r(*lead, N, udim),
+        G @ G.mT / xdim + eye(xdim), 0.1 * eye(udim).expand(lead + (N, udim, udim)),
+        r(*lead, N, xdim), r(*lead, N, udim), u(*lead), 0.01 * u(*lead), u(*lead), u(*lead),
+        r(*lead, udim), Nc=Nc, weights=u(*lead))
+    nc = Nc * udim
+    return (cqp.Ft, cqp.Qt, cqp.Rt, cqp.sl_reg, cqp.sl_reg0, r(B, nc),
+            r(B, M, N * udim - nc))
+
+
+def k5_bound_ms(ins):
+    """The least time of one K5 launch: the bytes it must move at the memory
+    rate (Ft's lower blocks, Qt, Rt, the weights and the iterate read once,
+    Hw written once); its 4 flops a lower entry of Ft are far under the FMA
+    rate."""
+    Ft, Qt, Rt, sl, sl0, uc, uf = ins
+    N, xdim, udim = Qt.shape[-3], Qt.shape[-1], Rt.shape[-1]
+    P = sl.numel()
+    lower = xdim * udim * N * (N + 1) // 2
+    n = P * lower + Qt.numel() + Rt.numel() + 2 * P + uc.numel() + 2 * uf.numel() \
+        + P * uc.shape[-1]
+    return n * Ft.element_size() / PEAK_BYTES * 1e3
+
+
+def phase_hessian_apply(dev, card):
+    """K5 against its plain version at the cells' shapes, then timed: plain
+    version, the formula with the consensus sum on cuBLAS (what
+    `H_apply_factored` ran before K5), kernel, kernel, formula, plain."""
+    print("[3] K5 (hessian_apply) vs plain on the card")
+    results = []
+    for B, M, N, dtype in K5_SHAPES:
+        ins = k5_inputs(B, M, N, dtype, dev)
+        nc = ins[5].shape[-1]
+        before = hessian_apply.LAUNCHES["hessian_apply"]
+        out = hessian_apply.hessian_apply(*ins)
+        ref = hessian_apply.hessian_apply_plain(*(a.double() for a in ins))
+        torch.cuda.synchronize()
+        rel = ((out.double() - ref).abs().max() / ref.abs().max()).item()
+        what = f"(B {B}, M {M}, N {N}) {str(dtype)[6:]}"
+        require(rel <= K5_TOL[dtype] and hessian_apply.LAUNCHES["hessian_apply"] == before + 1,
+                f"K5 {what} disagrees with its plain version (rel {rel:.3e}) or did not launch")
+
+        def formula():
+            Hw = hessian_apply.hessian_apply_plain(*ins)
+            return Hw[..., :nc].sum(dim=-2), Hw[..., nc:]
+
+        fns = {"plain": lambda: hessian_apply.hessian_apply_plain(*ins), "formula": formula,
+               "kernel": lambda: hessian_apply.hessian_apply(*ins)}
+        t = {}
+        for k in ("plain", "formula", "kernel", "kernel", "formula", "plain"):
+            t.setdefault(k, []).append(time_ms(fns[k]))
+        r = {"shape": [B, M, N], "dtype": str(dtype)[6:], "rel_err": rel,
+             **{f"{k}_ms": sum(v) / 2 for k, v in t.items()}, "bound_ms": k5_bound_ms(ins)}
+        print(f"  K5 {what}: rel err {rel:.3e} against f64 (tol {K5_TOL[dtype]:g}); kernel "
+              f"{r['kernel_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, the formula with "
+              f"the consensus sum {r['formula_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by bytes "
+              f"({100 * r['bound_ms'] / r['kernel_ms']:.3g}% of it) [{card}]")
+        results.append(r)
+        del ins, out, ref
+        torch.cuda.empty_cache()
+    return results
+
+
 def phase_probe(dev):
     solver, data = probe(torch.float32, device=dev)
     chol_inv.reset_launch_counts()
@@ -521,14 +607,16 @@ def phase_probe(dev):
 
 
 def timed_call(solver, stack, warm_solver=None):
-    """One warm-up call, then one timed call with the launch counts reset
-    before it and read after it: (X, U, info, seconds, launches). The long
+    """One warm-up call, then one timed call with the launch counts (K5's
+    too) reset before it and read after it: (X, U, info, seconds, launches
+    of K1-K4). The long
     Riccati calls launch the same small kernels hundreds of thousands of
     times: they are warmed by ``warm_solver``, a solver of the same shapes
     with fewer SCP iterations (a no-op where the caller has warmed)."""
     (warm_solver or solver)(stack)
     torch.cuda.synchronize()
     chol_inv.reset_launch_counts()
+    hessian_apply.LAUNCHES["hessian_apply"] = 0
     t0 = time.perf_counter()
     X, U, info = solver(stack)
     torch.cuda.synchronize()
@@ -563,6 +651,9 @@ def phase_flagship(dev, card):
     require(only_launched(launches, ("inv_cholesky_diag", "inv_cholesky"))
             and launches["inv_cholesky_diag"] == launches["inv_cholesky"],
             f"flagship launches {launches}: expected K1 == K2 > 0 and no other")
+    # K5 once a box-IPM iteration
+    require(hessian_apply.LAUNCHES["hessian_apply"] == launches["inv_cholesky_diag"],
+            f"flagship K5 launches {hessian_apply.LAUNCHES}: expected K1's")
     return launches, U
 
 
@@ -581,6 +672,8 @@ def phase_podscale(dev, card):
     require(only_launched(launches, ("inv_cholesky_diag_big", "inv_cholesky"))
             and launches["inv_cholesky_diag_big"] == launches["inv_cholesky"],
             f"pod-scale launches {launches}: expected K3 == K2 > 0 and no other")
+    require(hessian_apply.LAUNCHES["hessian_apply"] == launches["inv_cholesky_diag_big"],
+            f"pod-scale K5 launches {hessian_apply.LAUNCHES}: expected K3's")
     pod_f64(6, what, True, U, card)
     return launches
 
@@ -2327,6 +2420,7 @@ def main():
     with matmul_precision_scope():
         phase_build()
         kern = phase_kernels(dev, card)
+        k5 = phase_hessian_apply(dev, card)
         chol_inv.SHAPES.clear()
         phase_probe(dev)
         flagship_launches, U_flagship = phase_flagship(dev, card)
@@ -2418,7 +2512,9 @@ def main():
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
          "launches": launches[path][name], **kern[name]}
-        for name, (replaces, _, _, path) in KERNELS.items()]}))
+        for name, (replaces, _, _, path) in KERNELS.items()] + [
+        {"name": "hessian_apply", "route": "cuda", "source": "pmpc_tpu_torch/csrc/hessian_apply.cu",
+         "replaces": None, "launches": launches["flagship"]["inv_cholesky_diag"], "shapes": k5}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,7 +13,7 @@ import collections
 
 import torch
 
-from .ops import chol_inv
+from .ops import chol_inv, hessian_apply
 from .tracing import COUNTS, span
 
 
@@ -102,7 +102,7 @@ class Captured:
     """``fn(*ins)`` captured as a graph over static copies of ``ins`` (None
     stays None), which `copy_in` fills; ``out``, what the capture returned,
     is written over at each replay. The kernel launches the capture recorded
-    (`chol_inv.tally`) are counted at each replay."""
+    (`chol_inv.tally`, `hessian_apply.tally`) are counted at each replay."""
 
     def __init__(self, fn, ins=()):
         self.ins = [None if t is None else t.clone() for t in ins]
@@ -111,7 +111,7 @@ class Captured:
         def run():
             self.out = fn(*self.ins)
 
-        with chol_inv.tally() as self.launches:
+        with chol_inv.tally() as self.launches, hessian_apply.tally() as self.k5_launches:
             self.graph.capture(run)
 
     def copy_in(self, ins) -> None:
@@ -120,4 +120,5 @@ class Captured:
     def replay(self):
         self.graph.replay()
         chol_inv.count_replay(self.launches)
+        hessian_apply.count_replay(self.k5_launches)
         return self.out

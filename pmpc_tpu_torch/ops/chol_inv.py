@@ -69,6 +69,9 @@ _TALLY = None  # while a graph is captured: its launches, by shape
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc" / "chol_inv.cu"
+# the port's hand kernels, built into one library: K1-K4 and K5
+# (`ops/hessian_apply.py`)
+_SOURCES = (_SRC, _PKG / "csrc" / "hessian_apply.cu")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC"]
 _LIB = None
@@ -90,18 +93,18 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile ``csrc/chol_inv.cu`` (once per source hash) and return the
-    shared library's path."""
-    src = _SRC.read_bytes()
+    """Compile ``csrc/chol_inv.cu`` and ``csrc/hessian_apply.cu`` into one
+    shared library (once per hash of the sources) and return its path."""
+    src = b"".join(p.read_bytes() for p in _SOURCES)
     key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
     out_dir = _PKG / "_build" / key
-    lib = out_dir / "libchol_inv.so"
+    lib = out_dir / "libpmpc_kernels.so"
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SRC)]
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, *map(str, _SOURCES)]
     try:
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
         if res.returncode != 0:

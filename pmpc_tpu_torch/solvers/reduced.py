@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..dynamics import condense
+from ..ops.hessian_apply import hessian_apply
 from ..ops.linalg import spd_apply, spd_factor, spd_factor_diag
 from ..particles import psum
 
@@ -185,26 +186,11 @@ def update_condensed_linear(cqp: CondensedQP, X_prev, U_prev, Q, R, X_ref, U_ref
 
 
 def H_apply_factored(cqp: CondensedQP, uc: torch.Tensor, uf: torch.Tensor):
-    """(H z)_c, (H z)_f in FACTORED form: Ft'(Qt(Ft w)) + Rt w + slew.
-    uc (B, nc), uf (B, M, nf)."""
-    N, xdim = cqp.Qt.shape[-3], cqp.Qt.shape[-1]
-    udim = cqp.Rt.shape[-1]
-    nc = cqp.nc
-    w = z_to_w(uc, uf)  # (B, M, NU)
-    lead = w.shape[:-1]
-    Ftw = (cqp.Ft @ w[..., None])[..., 0]  # (B, M, NX)
-    QFtw = (cqp.Qt @ Ftw.reshape(lead + (N, xdim, 1))).reshape(lead + (-1,))
-    Hw = (QFtw[..., None, :] @ cqp.Ft)[..., 0, :]  # (B, M, NU)
-    U = w.reshape(lead + (N, udim))
-    Hw = Hw + (cqp.Rt @ U[..., None]).reshape(lead + (-1,))
-    # slew coupling: sl_reg * (T kron I) w + sl_reg0 on the first block
-    d = U[..., 1:, :] - U[..., :-1, :]  # (B, M, N-1, udim)
-    Sw = torch.zeros_like(U)
-    Sw[..., :-1, :] -= d
-    Sw[..., 1:, :] += d
-    Hw = Hw + cqp.sl_reg[..., None] * Sw.reshape(lead + (-1,))
-    Hw[..., :udim] += cqp.sl_reg0[..., None] * U[..., 0, :]
-    return psum(Hw[..., :nc].sum(dim=-2)), Hw[..., nc:]
+    """(H z)_c, (H z)_f in FACTORED form: Ft'(Qt(Ft w)) + Rt w + slew, per
+    particle by `hessian_apply` (kernel K5 on the card), then the consensus
+    rows summed over the particles. uc (B, nc), uf (B, M, nf)."""
+    Hw = hessian_apply(cqp.Ft, cqp.Qt, cqp.Rt, cqp.sl_reg, cqp.sl_reg0, uc, uf)
+    return psum(Hw[..., :cqp.nc].sum(dim=-2)), Hw[..., cqp.nc:]
 
 
 class ArrowFactors(NamedTuple):
