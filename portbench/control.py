@@ -44,7 +44,8 @@ def build(cfg):
             out = [reference.solve(f, data.x0[i:i + n], data.X_ref[i:i + n], data.U_ref[i:i + n],
                                    cfg["q"], cfg["r"], cfg["u_lo"], cfg["u_hi"], cfg["Nc"],
                                    sol["res_tol"], sol["max_it"], CONTROL_QP_TOL,
-                                   U0=data.U_prev[i:i + n], qp_max_iter=CONTROL_QP_ITERS)
+                                   U0=data.U_prev[i:i + n], qp_max_iter=CONTROL_QP_ITERS,
+                                   soc_r=cfg.get("u_soc_r"))
                    for i in range(0, data.x0.shape[0], n)]
         finally:
             torch.backends.cuda.matmul.allow_tf32 = prev[0]

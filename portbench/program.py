@@ -47,18 +47,22 @@ def load_kernels(device):
 def inputs(cfg, B, device):
     """The (B, M, ...) problem of the configuration with x0 = 0 and the
     references X_ref = 0, U_ref = 0 (the tracking target at the origin):
-    the traffic replaces x0, and X_ref where it moves the target."""
+    the traffic replaces x0, and X_ref where it moves the target. A
+    configuration that states ``u_soc_r`` gets that radius on every stage
+    of every particle."""
     from pmpc_tpu_torch import make_scp_data
     M, N, xdim, udim = cfg["M"], cfg["N"], cfg["xdim"], cfg["udim"]
     dt = dtype_of(cfg)
     lead = (B, M, N)
     eye = lambda d, s: (s * torch.eye(d, dtype=dt, device=device)).expand(lead + (d, d)).clone()
+    cone = {} if "u_soc_r" not in cfg else \
+        dict(u_soc_r=torch.full(lead, cfg["u_soc_r"], dtype=dt, device=device))
     return make_scp_data(
         torch.zeros(B, M, xdim, dtype=dt, device=device), eye(xdim, cfg["q"]),
         eye(udim, cfg["r"]), reg_x=cfg["reg_x"], reg_u=cfg["reg_u"],
         u_l=torch.full(lead + (udim,), cfg["u_lo"], dtype=dt, device=device),
         u_u=torch.full(lead + (udim,), cfg["u_hi"], dtype=dt, device=device),
-        dtype=dt, device=device)
+        dtype=dt, device=device, **cone)
 
 
 def counters():
