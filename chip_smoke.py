@@ -18,12 +18,13 @@ happens and the run exits non-zero before the two JSON lines:
    shape (K2 also at (2048, 50, 50)) beside its plain version, the library
    calls and its bound, and K2 at (64, 10, 10) beside the launch of a kernel
    that does nothing; then K5 (`hessian_apply`, the box IPM's factored
-   Hessian apply) at the three benchmark cells' shapes, B M = 2,048 and
-   32,768 at N = 30 in f32 and 16,384 at N = 50 in f64, against the formula
-   in f64, and timed with CUDA events over 50 launches beside its plain
-   version, the formula with the consensus sum on cuBLAS (`H_apply_factored`
-   before K5) and its bound; phases 5 and 6 hold its launches to one a
-   box-IPM iteration (K1's, K3's);
+   Hessian apply) at the four benchmark cells' shapes, B M = 2,048 and
+   32,768 at N = 30 in f32, 16,384 at N = 50 in f64, and config 3's 512 at
+   N = 20 with no shared stages in f32, against the formula in f64, and
+   timed with CUDA events over 50 launches beside its plain version, the
+   formula with the consensus sum on cuBLAS (`H_apply_factored` before K5)
+   and its bound; phases 5, 6 and 14 hold its launches to one a box-IPM
+   iteration (K1's, K3's, K2's);
 4. the accuracy-probe config in f32 against the JAX package's f64 answer
    (benchmarks/accuracy_ref_u64.npy), to 1e-3;
 5. the headline program: B=64 scenarios, M=32, N=30, Nc=5, f32, Anderson
@@ -60,7 +61,9 @@ reaches no Pallas kernel either): their launch counts must stay 0;
    warmed: ms per call, converged solves/s, converged_frac (f64 gated at
    0.95), the slowest lane's SCP iterations, lanes whose IPM gave up, the
    largest |u| and ||u_j|| (both dtypes gated), |U32 - U64|; the cone path
-   forms its 40 x 40 Newton blocks, so K2 alone at (512, 40, 40);
+   forms its 40 x 40 Newton blocks, so K2 alone at (512, 40, 40), with one
+   K5 launch a K2 launch, and the cone IPM replays CUDA graphs
+   (``ipm_cone_replay`` rises);
 15. the flagship instance with the cone ||u_j|| <= 0.9 on every stage, B=4,
    f64, tight IPM solves: the condensed route (K2 at (128, 50, 50) and
    (4, 10, 10)) against the Riccati route (no kernel), U within 1e-7, the
@@ -210,7 +213,7 @@ import numpy as np
 import torch
 
 import pmpc_tpu_torch
-from pmpc_tpu_torch import conebatch, sensitivity, warmup
+from pmpc_tpu_torch import conebatch, sensitivity, tracing, warmup
 from pmpc_tpu_torch.conebatch import _canon_problem, solve_problems_cone
 from pmpc_tpu_torch.dynamics import dynamics_violation, linearize
 from pmpc_tpu_torch.flagship import (EXP_KAPPA, EXP_VMAX, HEADLINE_KW, KEEP_IN_C, KEEP_IN_R,
@@ -274,11 +277,12 @@ NV_LOG, NV_EXP = 213, 73  # the composed programs' widths in phases 19 and 20
 LBFGS_ITERS, COST_ITERS = 8000, 1000  # phase 21: L-BFGS iterations (logbarrier, user cost)
 NEWTON_SMOOTH = 40  # phase 21: Newton steps of the references
 HOST_IT = 5  # phase 23 (a): SCP iterations of the host-against-fused pair
-# K5 (hessian_apply): the cells' shapes (B, M, N, dtype) at xdim 4, udim 2, Nc 5,
-# and its tolerance against the formula in f64, relative to the largest entry
-# (sums of ~200 terms of size ~1 in f32)
-K5_SHAPES = ((64, 32, 30, torch.float32), (1024, 32, 30, torch.float32),
-             (256, 64, 50, torch.float64))
+# K5 (hessian_apply): the cells' shapes (B, M, N, dtype, Nc) at xdim 4, udim 2
+# (config 3's cone cell: one particle, no shared stages), and its tolerance
+# against the formula in f64, relative to the largest entry (sums of ~200
+# terms of size ~1 in f32)
+K5_SHAPES = ((64, 32, 30, torch.float32, 5), (1024, 32, 30, torch.float32, 5),
+             (256, 64, 50, torch.float64, 5), (512, 1, 20, torch.float32, 0))
 K5_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 FAILED = []
 CHECKED = set()  # (adds a diagonal, batch, n, dtype) held against plain
@@ -553,15 +557,15 @@ def phase_hessian_apply(dev, card):
     `H_apply_factored` ran before K5), kernel, kernel, formula, plain."""
     print("[3] K5 (hessian_apply) vs plain on the card")
     results = []
-    for B, M, N, dtype in K5_SHAPES:
-        ins = k5_inputs(B, M, N, dtype, dev)
+    for B, M, N, dtype, Nc in K5_SHAPES:
+        ins = k5_inputs(B, M, N, dtype, dev, Nc=Nc)
         nc = ins[5].shape[-1]
         before = hessian_apply.LAUNCHES["hessian_apply"]
         out = hessian_apply.hessian_apply(*ins)
         ref = hessian_apply.hessian_apply_plain(*(a.double() for a in ins))
         torch.cuda.synchronize()
         rel = ((out.double() - ref).abs().max() / ref.abs().max()).item()
-        what = f"(B {B}, M {M}, N {N}) {str(dtype)[6:]}"
+        what = f"(B {B}, M {M}, N {N}, Nc {Nc}) {str(dtype)[6:]}"
         require(rel <= K5_TOL[dtype] and hessian_apply.LAUNCHES["hessian_apply"] == before + 1,
                 f"K5 {what} disagrees with its plain version (rel {rel:.3e}) or did not launch")
 
@@ -882,13 +886,17 @@ def phase_config3(dev, card):
         # iteration
         stats = baseline_config(3, dtype, device=dev, collect_stats=True)[0](stack)[2]
         failed = int(stats["scan_stats"]["ipm_failed"].any(1).sum())
+        replays = tracing.COUNTS["ipm_cone_replay"]
         X, U, info, dt, launches = timed_call(solver, stack, warm_solver=lambda _: None)
+        replays = tracing.COUNTS["ipm_cone_replay"] - replays
+        k5 = hessian_apply.LAUNCHES["hessian_apply"]
         frac, _, _ = report(14, f"config 3 (box +-1, cone ||u_j|| <= {SOC_R3}) B={B} M=1 N=20 "
                             f"{name} AA", info, dt, launches, card)
         u_max, u_norm_max = U.abs().max().item(), U.norm(dim=-1).max().item()
         print(f"    lanes whose IPM gave up in some SCP iteration: {failed}; max |u| "
               f"{u_max:.7f}, max ||u_j|| {u_norm_max:.7f}; K2 (inv_cholesky) launches at "
-              f"({B}, 40, 40): {launches['inv_cholesky']}")
+              f"({B}, 40, 40): {launches['inv_cholesky']}, K5 (hessian_apply) launches: {k5}, "
+              f"replays of chunks with cones: {replays}")
         require(torch.isfinite(X).all() and torch.isfinite(U).all()
                 and U.shape == (B, 1, 20, 2), f"[14] config 3 {name} output is not finite "
                 "or has the wrong shape")
@@ -898,6 +906,11 @@ def phase_config3(dev, card):
         require(only_launched(launches, ("inv_cholesky",))
                 and ("inv_cholesky", B, 40, dtype) in chol_inv.SHAPES,
                 f"[14] config 3 {name} launches {launches}: expected K2 at ({B}, 40, 40) only")
+        # one factored Hessian apply (K5) an IPM iteration, as one K2 factor;
+        # the cone IPM replayed as CUDA graphs, not eager
+        require(k5 == launches["inv_cholesky"], f"[14] config 3 {name}: K5 launches {k5}, "
+                f"expected K2's {launches['inv_cholesky']}")
+        require(replays > 0, f"[14] config 3 {name}: no replay of a chunk with cones")
         out[dtype] = (U, frac, launches)
     (U32, _, launches32), (U64, frac64, _) = out[torch.float32], out[torch.float64]
     print(f"    |U32 - U64|_inf = {(U32.double() - U64).abs().max().item():.3e}")

@@ -35,7 +35,9 @@ from ..ops.linalg import spd_apply, spd_factor
 def _jdiag(u: torch.Tensor) -> torch.Tensor:
     """The diagonal of J, (p,), in u's dtype and device."""
     J = torch.full((u.shape[-1],), -1.0, dtype=u.dtype, device=u.device)
-    J[0] = 1.0
+    # a fill on the device: ``J[0] = 1.0`` copies a host scalar into the
+    # card's memory, a synchronising copy that a CUDA graph cannot capture
+    J[0].fill_(1.0)
     return J
 
 

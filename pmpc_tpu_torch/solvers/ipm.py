@@ -29,9 +29,10 @@ breakdown boost) are (B,) tensors. The batched ``while_loop`` becomes a
 Python loop that runs while any lane is active; a lane that is not active
 keeps its state unchanged (``jax.vmap`` of ``lax.while_loop`` selects the
 same way), on top of the body's own freeze. The loop test costs one host
-sync per iteration. On the card's box-only path the loop runs as chunks of
-k iterations captured once as a CUDA graph (`graphs`) and replayed, with a
-host test between replays at most (`_ChunkGraph`); the arithmetic is the same.
+sync per iteration. On the card, with control bounds and with or without
+cones, the loop runs as chunks of k iterations captured once as a CUDA graph
+(`graphs`) and replayed, with a host test between replays at most
+(`_ChunkGraph`); the arithmetic is the same.
 
 Under a particle group (`particles.particle_scope`) the (B, M, ...) arrays
 hold this rank's particles: the flat constraint vector's consensus rows are
@@ -208,7 +209,8 @@ def ipm_core(
                  0.99 if tau is None else tau, gondzio, predictor)
     init, body, failed_of = _core(cqp, bounds, tol_dynamic, socs, ex, opts)
     state = init(warm)
-    ins = [*cqp, *bounds, tol_dynamic]  # what the box iteration reads (None: absent)
+    # what an iteration reads (None: absent); the radii only with cones
+    ins = [*cqp, *bounds, tol_dynamic, *(socs if has_soc else ())]
     graph = _graph_for(ins, state, opts, iters)
     if graph is not None:
         state = graph.run(ins, state)
@@ -428,25 +430,28 @@ def _core(cqp: CondensedQP, bounds: BoxBounds, tol_dynamic, socs, ex, opts: _Opt
             Kcc, Kcf, Kff = box_weighted_K(cqp, wc_d, wf_d, wx, Ftc, Ftf,
                                            has_u=has_u, has_x=has_x)
             if has_soc:
-                # NT scalings per cone; r_pq = s - (h - Gz)
-                r_pq = (sq - cone_vals(uc, uf)) * rmaskf[..., None]
-                Wq, Wqinv, Wq2inv, lamq = _soc_W(sq, zq)
-                # K += S' (W^-2)[1:, 1:] S: block-diagonal per stage
-                Bq = Wq2inv[..., 1:, 1:] * rmaskf[..., None, None]
-                if nc:
-                    Kcc = Kcc + _block_diag(Bq[:, :Nc_soc])
-                if Nf_soc:
-                    Kff = Kff + _block_diag(Bq[:, Nc_soc:].reshape(B, M, Nf_soc, udim, udim))
-                # breakdown retries boost the regularization: a near-singular
-                # K (the cone scalings grow ~1/mu near convergence) makes the
-                # factor NaN; the retry re-solves the same iterate with more
-                diag_scale = (pmean(Kff.diagonal(dim1=-2, dim2=-1), (-2, -1)) if nf
-                              else Kcc.diagonal(dim1=-2, dim2=-1).abs().mean(-1)) + 1.0
-                boost = badc.to(dtype) ** 2 * 1e-5 * diag_scale
-                if nc:
-                    Kcc = Kcc + boost[:, None, None] * torch.eye(nc, dtype=dtype, device=dev)
-                if nf:
-                    Kff = Kff + boost[:, None, None, None] * torch.eye(nf, dtype=dtype, device=dev)
+                with span("ipm.cone"):
+                    # NT scalings per cone; r_pq = s - (h - Gz)
+                    r_pq = (sq - cone_vals(uc, uf)) * rmaskf[..., None]
+                    Wq, Wqinv, Wq2inv, lamq = _soc_W(sq, zq)
+                    # K += S' (W^-2)[1:, 1:] S: block-diagonal per stage
+                    Bq = Wq2inv[..., 1:, 1:] * rmaskf[..., None, None]
+                    if nc:
+                        Kcc = Kcc + _block_diag(Bq[:, :Nc_soc])
+                    if Nf_soc:
+                        Kff = Kff + _block_diag(Bq[:, Nc_soc:].reshape(B, M, Nf_soc, udim,
+                                                                        udim))
+                    # breakdown retries boost the regularization: a near-singular
+                    # K (the cone scalings grow ~1/mu near convergence) makes the
+                    # factor NaN; the retry re-solves the same iterate with more
+                    diag_scale = (pmean(Kff.diagonal(dim1=-2, dim2=-1), (-2, -1)) if nf
+                                  else Kcc.diagonal(dim1=-2, dim2=-1).abs().mean(-1)) + 1.0
+                    boost = badc.to(dtype) ** 2 * 1e-5 * diag_scale
+                    if nc:
+                        Kcc = Kcc + boost[:, None, None] * torch.eye(nc, dtype=dtype, device=dev)
+                    if nf:
+                        Kff = Kff + boost[:, None, None, None] * torch.eye(nf, dtype=dtype,
+                                                                           device=dev)
             K = (Kcc, Kcf, Kff)
             with span("ipm.factor"):
                 F = arrow_factor(Kcc, Kcf, Kff, jitter=kappa)
@@ -540,10 +545,11 @@ def _core(cqp: CondensedQP, bounds: BoxBounds, tol_dynamic, socs, ex, opts: _Opt
             ap = torch.clamp(tau * mins[:, 0], max=1.0)
             ad = torch.clamp(tau * mins[:, 1], max=1.0)
             if has_soc:
-                aq_p = torch.where(rmask, _soc_step_len(sq_, dsq), torch.inf)
-                aq_d = torch.where(rmask, _soc_step_len(zq_, dzq), torch.inf)
-                ap = torch.minimum(ap, tau * split_min(aq_p, Nc_soc))
-                ad = torch.minimum(ad, tau * split_min(aq_d, Nc_soc))
+                with span("ipm.cone"):
+                    aq_p = torch.where(rmask, _soc_step_len(sq_, dsq), torch.inf)
+                    aq_d = torch.where(rmask, _soc_step_len(zq_, dzq), torch.inf)
+                    ap = torch.minimum(ap, tau * split_min(aq_p, Nc_soc))
+                    ad = torch.minimum(ad, tau * split_min(aq_d, Nc_soc))
             return ap, ad
 
         def ahead(x, a, dx):
@@ -725,10 +731,11 @@ def _chunk(body, state: IPMState, active: torch.Tensor, k: int, cap: int):
 
 def _engages(device_type: str, opts: _Opts, group) -> bool:
     """Whether the loop runs as captured chunks (`_ChunkGraph`): where
-    `graphs.engages` holds, with control bounds alone and no central-path
-    target (the logbarrier smoothing's centering tail runs eager)."""
+    `graphs.engages` holds, with control bounds, with or without the
+    per-stage cones, and no state boxes, extra rows or central-path target
+    (the logbarrier smoothing's centering tail runs eager)."""
     return (graphs.engages(device_type, group) and opts.has_u
-            and not (opts.has_x or opts.has_soc or opts.has_ex) and opts.mu_target <= 0)
+            and not (opts.has_x or opts.has_ex) and opts.mu_target <= 0)
 
 
 # A chunk's iterations, from B M (lanes x particles, the device work of one
@@ -777,23 +784,26 @@ class _ChunkGraph:
     the inputs and the state, replayed in place of the eager loop: a layout
     graph (`_core`) once a call, then at most ceil(cap / k) chunks, which
     write their state back into its copies, with a host test between (none
-    where k covers the cap). A call hands back copies of the state."""
+    where k covers the cap). A call hands back copies of the state. The
+    cones' radii, where there are cones, are inputs like the others: copied
+    in at every call, never the capture's."""
 
     def __init__(self, ins: list, state: IPMState, opts: _Opts, k: int, cap: int):
         self.active = torch.zeros_like(state.done)  # the lanes active after a chunk
-        self.k, self.cap = k, cap
-        n, m = len(CondensedQP._fields), len(ins)
+        self.k, self.cap, self.cones = k, cap, opts.has_soc
+        n = len(CondensedQP._fields)
+        t = n + len(BoxBounds._fields)  # tol_dynamic's place; the radii follow it
 
         def layout(*s):  # the inputs and the state, the chunk's body from them
-            return _core(CondensedQP(*s[:n]), BoxBounds(*s[n:m - 1]), s[m - 1], None, None,
-                         opts)[1]
+            socs = SocSpec(*s[t + 1:len(ins)]) if opts.has_soc else None
+            return _core(CondensedQP(*s[:n]), BoxBounds(*s[n:t]), s[t], socs, None, opts)[1]
 
         def chunk():
             new, active = _chunk(self.layout.out, self.state, _active(self.state, cap), k, cap)
             graphs.copy_in((*self.state, self.active), (*new, active))
 
         self.layout = graphs.Captured(layout, (*ins, *state))
-        self.state = IPMState(*self.layout.ins[m:])
+        self.state = IPMState(*self.layout.ins[len(ins):])
         self.chunk = graphs.Captured(chunk)
 
     def run(self, ins: list, state: IPMState) -> IPMState:
@@ -805,6 +815,8 @@ class _ChunkGraph:
             with span("ipm.iter", self.k):
                 self.chunk.replay()
             COUNTS["ipm_graph_replay"] += 1
+            if self.cones:
+                COUNTS["ipm_cone_replay"] += 1
         out = IPMState(*(torch.empty_like(t) for t in self.state))
         graphs.copy_in(out, self.state)
         return out

@@ -138,6 +138,7 @@ def build_scp_solver(
     ipm_gondzio: int = 0,
     ipm_predictor: bool = True,
     ipm_tau: Optional[float] = None,
+    ipm_fresh_retry: bool = False,
     has_u_soc: bool = False,
     method: str = "condensed",
     has_slew: bool = False,
@@ -160,7 +161,13 @@ def build_scp_solver(
     (`solve_eq`). ``has_u_soc=True`` adds the per-stage cones
     ||u_j|| <= r_j of ``data.u_soc_r`` (the data must carry them; without
     the flag they are ignored); the IPM warm tuple then carries the cone
-    slacks and duals (sq, zq) as its 5th and 6th entries.
+    slacks and duals (sq, zq) as its 5th and 6th entries. A lane whose IPM
+    gives up keeps its last accepted iterate, so its next round re-solves
+    the same subproblem; as in the JAX solver, it starts from the warm start
+    that gave up, which can give up again every round to ``max_it``.
+    ``ipm_fresh_retry=True`` starts that round from the same primal point
+    with fresh slacks and multipliers instead (ones, the cones at the unit
+    point), which departs from the JAX solver on such lanes alone.
     ``ipm_gondzio`` (that many centrality correctors an IPM iteration, kept
     where they lengthen the step; without cones), ``ipm_predictor=False``
     (one Newton solve an IPM iteration, the LOQO centering rule) and
@@ -449,6 +456,13 @@ def build_scp_solver(
                 acc_out = tuple(_sel_tree(freeze, old, new) for old, new in zip(
                     acc, (histF_n, histZ_n, nh_n, X, U)))
         keep = lambda old, new: _sel_tree(freeze, old, new)
+        warm_out = keep(warm, warm_new)
+        if has_bounds and warm_start and ipm_fresh_retry:
+            # an IPM that gave up leaves its lane where it was, so the next
+            # round solves the same subproblem again: from the warm start that
+            # gave up it can give up again, every round to max_it. The retry
+            # keeps the primal point and starts the slacks and multipliers afresh
+            warm_out = _sel_tree(bad & ~done, _fresh_duals(warm_out), warm_out)
         ys = None
         if collect_stats:
             ys = dict(ipm_iters=stats["iters"] if has_bounds
@@ -459,7 +473,7 @@ def build_scp_solver(
         return (keep(X_prev, X_lin), keep(U_prev, U_lin),
                 it + torch.where(done, 0, 1).to(it.dtype), done | now_done,
                 keep(resid, new_resid), keep(resid_m, resid_m_new),
-                keep(warm, warm_new), acc_out), ys, None if riccati else cqp
+                warm_out, acc_out), ys, None if riccati else cqp
 
     def init_warm_acc(data: SCPData, state=None):
         B = data.x0.shape[0]
@@ -576,6 +590,18 @@ def build_scp_solver(
     solver.max_it, solver.build_args = max_it, build_args
     solver.rebuild = lambda **changes: build_scp_solver(dynamics, **{**build_args, **changes})
     return solver
+
+
+def _fresh_duals(warm):
+    """An IPM warm tuple (uc, uf, s, lam[, sq, zq]) with its slacks and
+    multipliers at the first round's neutral point: ones, and the cones'
+    at the unit point e = (1; 0)."""
+    ones = torch.ones_like(warm[2])
+    if len(warm) == 4:
+        return (warm[0], warm[1], ones, ones)
+    e = torch.zeros_like(warm[4])
+    e[..., 0].fill_(1.0)
+    return (warm[0], warm[1], ones, ones, e, e)
 
 
 def _sel_tree(cond, a, b):

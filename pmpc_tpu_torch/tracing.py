@@ -21,15 +21,21 @@ directly. Spans are recorded from one thread: the solver's.
 ``host_read`` is the number of loop tests that read the device's answer on
 the host (`particles.pany`); ``ipm_graph_capture`` and ``ipm_graph_replay``
 the captures (`graphs.Cache`) and replays of the box IPM's chunks of
-iterations as CUDA graphs (`solvers.ipm._ChunkGraph`); ``lin_graph_capture``
+iterations as CUDA graphs (`solvers.ipm._ChunkGraph`), and
+``ipm_cone_replay`` those replays whose chunks carry the per-stage control
+cones; ``lin_graph_capture``
 and ``lin_graph_replay`` those of a fresh SCP sub-iteration's linearization
 and condensed assembly (`torch_scp._LinGraphs`), so replays over fresh SCP
 rounds is the share of rounds that took the graph.
 
+With cones, ``ipm.cone`` covers their share of an IPM iteration: the NT
+scaling and the cone blocks added to the Newton matrix (once an iteration)
+and the cones' step lengths (once a direction).
+
 Where the box IPM runs as a CUDA graph, a replay is one ``ipm.iter`` span
-with ``n`` the chunk's iterations; ``ipm.factor``, ``ipm.residual`` and
-``ipm.solve`` then appear only at the capture, inside the span
-``ipm.capture``, since a replay runs no Python. Where the linearization and
+with ``n`` the chunk's iterations; ``ipm.factor``, ``ipm.residual``,
+``ipm.solve`` and ``ipm.cone`` then appear only at the capture, inside the
+span ``ipm.capture``, since a replay runs no Python. Where the linearization and
 assembly run as a graph, ``scp.linearize`` covers the copy of the graph's
 inputs and ``scp.assemble`` the replay, which runs both; at the capture the
 eager ``scp.linearize`` and ``scp.assemble`` appear inside ``scp.capture``.
@@ -41,7 +47,7 @@ import contextlib
 import time
 
 COUNTS = {"host_read": 0, "ipm_graph_capture": 0, "ipm_graph_replay": 0,
-          "lin_graph_capture": 0, "lin_graph_replay": 0}
+          "ipm_cone_replay": 0, "lin_graph_capture": 0, "lin_graph_replay": 0}
 
 _clock = time.time_ns
 _rec = None  # the list being recorded; None: off

@@ -120,7 +120,7 @@ def test_solver_on_the_graph_path_matches_eager(graph_path, k):
 @pytest.mark.parametrize("changes,engages", [
     ({}, True),
     (dict(has_x=True), False),
-    (dict(has_soc=True), False),
+    (dict(has_soc=True), True),
     (dict(has_ex=True), False),
     (dict(mu_target=1e-3), False),
     (dict(has_u=False), False),
@@ -128,8 +128,9 @@ def test_solver_on_the_graph_path_matches_eager(graph_path, k):
 ])
 def test_engage_rule(changes, engages):
     """The IPM's own half, on a CUDA device with no particle group (the
-    shared half: `test_torch_graphs.py`): control bounds alone, no
-    central-path target; the other options do not matter."""
+    shared half: `test_torch_graphs.py`): control bounds, with or without
+    cones, and no state boxes, extra rows or central-path target; the other
+    options do not matter."""
     assert ipm._engages("cuda", BOX._replace(**changes), None) is engages
 
 

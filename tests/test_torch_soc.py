@@ -392,6 +392,31 @@ def test_warm_tuple_with_cone_duals_through_convert():
 F7_LANES = [79, 125, 160, 256, 395, 452]
 
 
+def _f7_lanes():
+    """Config 3 in f32 (B=512, `stack_varied(data, 512, scale=0.02)`) cut to
+    `F7_LANES`: the JAX data and the port's."""
+    N, xdim = 20, 4
+    f32 = np.float32
+    d = jmake(np.ones((1, xdim), f32), np.tile(np.eye(xdim, dtype=f32), (1, N, 1, 1)),
+              np.tile((1e-2 * np.eye(UDIM)).astype(f32), (1, N, 1, 1)), reg_x=1.0, reg_u=0.1,
+              u_l=-np.ones((1, N, UDIM), f32), u_u=np.ones((1, N, UDIM), f32),
+              u_soc_r=np.full((1, N), SOC_R3, f32))
+    stack = jax.tree.map(lambda a: jnp.broadcast_to(a[None], (512,) + a.shape), d)
+    x0 = np.asarray(stack.x0) + 0.02 * np.random.default_rng(1).normal(
+        size=stack.x0.shape).astype(f32)
+    cut = jax.tree.map(lambda a: a[np.array(F7_LANES)], stack._replace(x0=jnp.asarray(x0)))
+    return cut, scp_data_from_numpy(cut, "cpu", torch.float32)
+
+
+def _f7_jax_riccati(**kw):
+    """The JAX fused solver of config 3, Riccati route (the port's cone
+    semantics, F5)."""
+    import __graft_entry__ as ge
+
+    return jbuild(ge._dubins, N=20, xdim=4, udim=UDIM, M=1, Nc=0, max_it=25, res_tol=1e-3,
+                  accel="AA", has_u_bounds=True, has_u_soc=True, method="riccati", **kw)
+
+
 def test_f7_config3_f32_give_ups_are_shared_and_tau_095_clears_them():
     """ROADMAP §3 F7. BASELINE config 3 in f32 (B=512) cut to six lanes:
     256 and 452, where the port's condensed route gave up on the card and
@@ -405,23 +430,9 @@ def test_f7_config3_f32_give_ups_are_shared_and_tau_095_clears_them():
     ``ipm_tau=0.95`` every lane converges on all three routes, with the
     same SCP iteration counts on this CPU (held to one iteration: f32
     residuals that end near res_tol may round either way elsewhere)."""
-    import __graft_entry__ as ge
-
-    N, xdim = 20, 4
-    f32 = np.float32
-    d = jmake(np.ones((1, xdim), f32), np.tile(np.eye(xdim, dtype=f32), (1, N, 1, 1)),
-              np.tile((1e-2 * np.eye(UDIM)).astype(f32), (1, N, 1, 1)), reg_x=1.0, reg_u=0.1,
-              u_l=-np.ones((1, N, UDIM), f32), u_u=np.ones((1, N, UDIM), f32),
-              u_soc_r=np.full((1, N), SOC_R3, f32))
-    stack = jax.tree.map(lambda a: jnp.broadcast_to(a[None], (512,) + a.shape), d)
-    x0 = np.asarray(stack.x0) + 0.02 * np.random.default_rng(1).normal(
-        size=stack.x0.shape).astype(f32)  # `stack_varied(data, 512, scale=0.02)`
-    cut = jax.tree.map(lambda a: a[np.array(F7_LANES)], stack._replace(x0=jnp.asarray(x0)))
-    t_data = scp_data_from_numpy(cut, "cpu", torch.float32)
+    cut, t_data = _f7_lanes()
     for tau in (None, 0.95):
-        solver = jbuild(ge._dubins, N=N, xdim=xdim, udim=UDIM, M=1, Nc=0, max_it=25,
-                        res_tol=1e-3, accel="AA", has_u_bounds=True, has_u_soc=True,
-                        method="riccati", ipm_tau=tau)
+        solver = _f7_jax_riccati(ipm_tau=tau)
         _, _, info_r = jax.vmap(solver)(cut)
         outs = {"JAX riccati": (np.asarray(info_r["converged"]), np.asarray(info_r["iters"]))}
         for method in ("condensed", "riccati"):
@@ -438,3 +449,40 @@ def test_f7_config3_f32_give_ups_are_shared_and_tau_095_clears_them():
             for conv, its in outs.values():
                 np.testing.assert_array_equal(conv, ref_conv)
                 assert np.abs(its - ref_its).max() <= 1, (its, ref_its)
+
+
+def test_f18_a_given_up_lane_stalls_in_jax_and_retries_in_the_port():
+    """ROADMAP §3 F18, the port's deliberate divergence from the JAX solver.
+    Config 3 in f32 at the default fraction to the boundary (0.99) on F7's
+    lanes, where the JAX Riccati route's IPM gives up on some lanes. A lane
+    whose IPM gives up keeps its iterate in both packages, so its next round
+    solves the same subproblem. The JAX solver starts that round from the
+    warm start that gave up: it gives up again every round, and the lane
+    ends unconverged at ``max_it``. The port with ``ipm_fresh_retry`` (the
+    cone cell's setting) starts it from the same primal point with fresh
+    slacks and multipliers (`torch_scp._fresh_duals`): a
+    round after a give-up does not give up, and every lane converges on
+    both of the port's routes. Which lanes give up follows each package's
+    last bits (F7); that the JAX solver stalls after any give-up, and that
+    the port recovers after any, is what is held."""
+    cut, t_data = _f7_lanes()
+    _, _, info = jax.vmap(_f7_jax_riccati(collect_stats=True))(cut)
+    # the rounds a lane ran: a done lane's later rows repeat its last
+    live = lambda its: np.arange(25)[None] < np.asarray(its)[:, None]
+    failed = np.asarray(info["scan_stats"]["ipm_failed"]) & live(info["iters"])
+    gave_up = failed.any(1)
+    assert gave_up.any()
+    for lane in np.flatnonzero(gave_up):  # after the first give-up, every round gives up
+        assert failed[lane, failed[lane].argmax():].all(), failed[lane]
+    np.testing.assert_array_equal(np.asarray(info["converged"]), ~gave_up)
+    assert (np.asarray(info["iters"])[gave_up] == 25).all()
+    for method in ("condensed", "riccati"):
+        s, _, _ = baseline_config(3, torch.float32, device="cpu", method=method,
+                                  collect_stats=True, ipm_fresh_retry=True)
+        _, U, t_info = s(t_data)
+        t_failed = t_info["scan_stats"]["ipm_failed"].numpy() & live(t_info["iters"])
+        print(f"{method}: JAX gave up on lanes {np.flatnonzero(gave_up).tolist()}; the port's "
+              f"give-ups (lane, round): {np.argwhere(t_failed).tolist()}")
+        assert not (t_failed[:, 1:] & t_failed[:, :-1]).any()
+        assert t_info["converged"].all()
+        assert U.norm(dim=-1).max() <= SOC_R3 + 1e-4 and U.abs().max() <= 1 + 1e-5
